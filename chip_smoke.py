@@ -15,9 +15,14 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    PMKID, keyver 2 that needs a nonce correction, keyver 1, keyver 3),
    a seeded 1,048,576-word dictionary in 131072-word batches, the PSK
    planted in the last batch.  Every net must be found with the right
-   PSK, NC delta, endian and PMK, through the kernel only.
+   PSK, NC delta, endian and PMK, through the kernel only;
+5. the SM probe (K2): its kernel against the plain version for all four
+   mixes at 1 and 2 iterations, at full width and at a ragged width
+   (exact), then its measurement path (``sm_probe.run``): the four mixes
+   at full width, the resident-threads sweep, the PMK/s ceiling, and from
+   the ``sha1_round`` rate K1's measured bound beside its issue-rate one.
 
-It then prints the kernel record as one JSON line and, last,
+It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 nonzero and the ``ok`` line is not printed.  Without a CUDA device it
 exits nonzero before doing anything.
@@ -26,9 +31,7 @@ exits nonzero before doing anything.
 import hashlib
 import json
 import re
-import shutil
 import statistics
-import subprocess
 import sys
 import time
 
@@ -42,66 +45,14 @@ ESSID = b"dwpa-torch-slice"
 PLANT_AT = UNIT_WORDS - 77777          # inside the last batch
 KERNEL_SOURCE = "dwpa_tpu_torch/csrc/pbkdf2_sha1.cu"
 REPLACES = "dwpa_tpu/ops/pbkdf2_pallas.py:88"
-# Each SM issues one warp instruction per scheduler per clock: 4 x 32
-# thread-instructions a clock.  The least time for N thread-instructions
-# is N / (SMs x 128 x max SM clock).
-LANES_PER_SM_CLOCK = 128
+PROBE_SOURCE = "dwpa_tpu_torch/csrc/sm_probe.cu"
+PROBE_REPLACES = "dwpa_tpu/ops/vpu_probe.py:94"
+PROBE_RAGGED = 1037          # not a multiple of the 128-thread block
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
-
-
-def smi(query):
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def sass_instructions(so):
-    """(instructions per hot-loop iteration, instructions outside it) of the
-    PBKDF2 kernel, read from ``cuobjdump -sass``.  The hot loop is the
-    longest backward branch span; NOPs are not counted."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
-                          text=True, check=True).stdout
-    body = text.split("pbkdf2_sha1_pmk_kernel", 1)[1]
-    insts, labels, pending = [], {}, []
-    for line in body.splitlines():
-        if line.strip().startswith("Function :"):
-            break
-        lab = re.match(r"\s*(\.L_x_\d+):", line)
-        if lab:
-            pending.append(lab.group(1))
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if not m:
-            continue
-        addr = int(m.group(1), 16)
-        for lab_name in pending:
-            labels[lab_name] = addr
-        pending = []
-        insts.append((addr, m.group(2).strip()))
-    index = {addr: i for i, (addr, _) in enumerate(insts)}
-    best = None
-    for i, (addr, op) in enumerate(insts):
-        if "BRA" not in op.split():
-            continue
-        t = re.search(r"`\((\.L_x_\d+)\)", op)
-        target = labels.get(t.group(1)) if t else None
-        if target is None:
-            a = re.search(r"0x([0-9a-f]+)", op)
-            target = int(a.group(1), 16) if a else None
-        if target is None or target not in index or index[target] > i:
-            continue
-        span = (index[target], i)
-        if best is None or span[1] - span[0] > best[1] - best[0]:
-            best = span
-    check(best is not None, "no loop found in the kernel's SASS")
-    real = [not op.startswith("NOP") for _, op in insts]
-    loop = sum(real[best[0]: best[1] + 1])
-    return loop, sum(real) - loop
 
 
 def cuda_ms(fn, reps):
@@ -263,6 +214,61 @@ def phase_unit(dev, rng, card):
     return launches, k1_ms, pw, step
 
 
+def phase_probe(dev, rng, card):
+    """Phase 5: the SM probe kernel against its plain version, then its
+    measurement path.  Returns the measurement and the K2 record's
+    comparison numbers."""
+    import torch
+
+    from dwpa_tpu_torch.ops import sm_probe
+    from dwpa_tpu_torch.ops.common import to_torch
+
+    full = torch.cuda.get_device_properties(0).multi_processor_count * sm_probe.MAX_THREADS_PER_SM
+    xs = {n: to_torch(rng.integers(0, 2**32, (5, n), dtype=np.uint64).astype(np.uint32), dev)
+          for n in (full, PROBE_RAGGED)}
+    err = 0
+    for n, x in xs.items():
+        for mix in sm_probe.MIXES:
+            for iters in (1, 2):
+                got = sm_probe.probe_cuda(x, mix, iters)
+                ref = sm_probe.probe_plain(x, mix, iters)
+                err = max(err, int((got.long() - ref.long()).abs().max()))
+                check(torch.equal(got, ref), f"probe kernel != plain: {mix}, N={n}, iters={iters}")
+    plain_ms = cuda_ms(lambda: sm_probe.probe_plain(xs[full], "sha1_round", 2), 3)
+    print(f"phase 5 probe kernel: exact vs plain for {len(sm_probe.MIXES)} mixes at 1 and 2 "
+          f"iterations, N={full} and N={PROBE_RAGGED}; max_abs_err={err}; plain sha1_round at "
+          f"2 iterations on int32[5, {full}]: {plain_ms:.3f} ms (median of 3, CUDA events) "
+          f"[{card}]", flush=True)
+
+    sm_probe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sm_probe.run()
+    wall = time.perf_counter() - t0
+    launches = sm_probe.LAUNCHES
+    check(launches > 0, "the probe path never launched the probe kernel")
+    print(f"phase 5 probe: {wall:.1f} s, {launches} launches; SM clock before {res['sm_clock_before']},"
+          f" after {res['sm_clock_after']}, max {res['max_sm_clock']} [{card}]", flush=True)
+    sweep = [("full width", r) for r in res["mixes"].values()]
+    sweep += [(f"{t} threads/SM", r) for t, r in res["sha1_round_threads_per_sm"].items()]
+    for label, r in sweep:
+        print(f"phase 5 probe {r['mix']} ({label}): {r['tera_ops_per_s']:.4f} logical Tops/s, "
+              f"{r['sass_per_step']:.4f} SASS per step{' (FOLDED)' if r['folded'] else ''}, "
+              f"{r['thread_inst_per_sm_clock']:.3f} thread-instructions per SM per max clock; "
+              f"t1 {r['seconds_1x']:.6f} s, t3 {r['seconds_3x']:.6f} s, SM clock during t3 "
+              f"{r['sm_clock_during_3x']} [{card}]", flush=True)
+        check(r["thread_inst_per_sm_clock"] <= 1.05 * sm_probe.ISSUE_PER_SM_CLOCK,
+              f"{r['mix']} reads above {sm_probe.ISSUE_PER_SM_CLOCK} thread-instructions per SM "
+              "per clock: the timing window or the count is wrong")
+    check(not res["mixes"]["sha1_round"]["folded"], "the sha1_round loop was folded")
+    print(f"phase 5 probe loop opcodes per {sm_probe.UNROLL}-step iteration: "
+          f"{res['loop_opcodes']}", flush=True)
+    print(f"phase 5 ceiling: {res['ceiling_pmk_per_s']:.1f} PMK/s = sha1_round "
+          f"{res['mixes']['sha1_round']['tera_ops_per_s']:.4f} logical Tops/s / "
+          f"{res['element_ops_per_pmk']} logical ops per PMK; folded mixes: "
+          f"{res['folded'] or 'none'} [{card}]", flush=True)
+    return res, launches, err, plain_ms
+
+
 def main():
     import torch
 
@@ -270,20 +276,29 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from dwpa_tpu_torch.client.challenge import challenge
-    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.ops import _nvcc, pbkdf2, pbkdf2_cuda, sm_probe
+    from dwpa_tpu_torch.ops.sass import loop_opcodes, loop_span, sass_text
 
     dev = torch.device("cuda", 0)
-    card = smi("name,power.limit")
+    card = sm_probe.nvidia_smi("name,power.limit")
     print(f"phase 1 device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     t0 = time.perf_counter()
-    so = pbkdf2_cuda.build()
-    ptxas = so.with_suffix(".ptxas.txt").read_text()
-    regs = re.findall(r"Used \d+ registers.*", ptxas)
-    loop_inst, other_inst = sass_instructions(so)
-    print(f"phase 1 build: {so.name} in {time.perf_counter() - t0:.1f} s; ptxas: "
-          f"{'; '.join(regs) or ptxas.strip()}; SASS: {loop_inst} instructions per loop "
-          f"iteration (T1+T2), {other_inst} outside the loop", flush=True)
+    so, probe_so = _nvcc.build(pbkdf2_cuda.SOURCE, sm_probe.SOURCE)
+    build_s = time.perf_counter() - t0
+    for lib in (so, probe_so):
+        ptxas = lib.with_suffix(".ptxas.txt").read_text()
+        regs = re.findall(r"Used \d+ registers.*", ptxas)
+        print(f"phase 1 build: {lib.name}; ptxas: {'; '.join(regs) or ptxas.strip()}", flush=True)
+    k1_sass = sass_text(so)
+    loop_inst, other_inst = loop_span(k1_sass, "pbkdf2_sha1_pmk_kernel")
+    k1_mix = loop_opcodes(k1_sass, "pbkdf2_sha1_pmk_kernel")
+    steps = {mix: sm_probe.loop_sass(mix) for mix in sm_probe.MIXES}
+    print(f"phase 1 build: both libraries in {build_s:.1f} s (one nvcc each, in parallel); "
+          f"K1 SASS: {loop_inst} instructions per loop iteration (T1+T2), {other_inst} outside "
+          f"the loop; probe SASS per {sm_probe.UNROLL}-step loop iteration: "
+          f"{', '.join(f'{m} {n[0]} (+{n[1]} outside)' for m, n in steps.items())}", flush=True)
+    print(f"phase 1 build: K1 loop opcodes {dict(k1_mix.most_common())}", flush=True)
 
     rng = np.random.default_rng(SEED)
     err = phase_kernel(dev, rng, card)
@@ -306,19 +321,47 @@ def main():
     err = max(err, int((pmk_kernel.long() - pmk_plain.long()).abs().max()))
     check(torch.equal(pmk_kernel, pmk_plain), "kernel != plain on the main-path batch")
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    res, probe_launches, probe_err, probe_plain_ms = phase_probe(dev, rng, card)
+
+    # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
+    # a clock at the maximum SM clock.  Probe rate: the thread-instructions
+    # per second the sha1_round probe sustained on the whole card.
+    sms = res["sms"]
+    clock_hz = float(res["max_sm_clock"].split()[0]) * 1e6
+    issue_per_s = sms * sm_probe.ISSUE_PER_SM_CLOCK * clock_hz
+    probe_per_s = res["mixes"]["sha1_round"]["thread_inst_per_s"]
     b = pw.shape[0]
-    ops = b * (loop_inst * 4095 + other_inst)
-    bound_ms = ops / (sms * LANES_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
-    print(f"kernel bound: {b} rows x ({loop_inst} x 4095 + {other_inst}) SASS instructions / "
-          f"({sms} SMs x {LANES_PER_SM_CLOCK} x {clock_mhz:.0f} MHz) = {bound_ms:.3f} ms; "
-          f"plain version {plain_ms:.1f} ms on the same batch [{card}]", flush=True)
+    k1_inst = b * (loop_inst * 4095 + other_inst)
+    issue_ms = k1_inst / issue_per_s * 1e3
+    probe_ms = k1_inst / probe_per_s * 1e3
+    print(f"K1 bound: {b} rows x ({loop_inst} x 4095 + {other_inst}) SASS instructions; "
+          f"issue rate ({sms} SMs x {sm_probe.ISSUE_PER_SM_CLOCK} x {clock_hz / 1e6:.0f} MHz) "
+          f"{issue_ms:.3f} ms, K1 at {issue_ms / k1_ms:.1%} of it; probe rate (sha1_round "
+          f"{probe_per_s:.6g} thread-instructions/s) {probe_ms:.3f} ms, K1 at "
+          f"{probe_ms / k1_ms:.1%} of it; K1 {k1_ms:.3f} ms; plain version {plain_ms:.1f} ms "
+          f"on the same batch [{card}]", flush=True)
+
+    # K2's bound: the SASS thread-instructions of one full-width sha1_round
+    # launch at the issue rate.
+    probe_loop, probe_other = steps["sha1_round"]
+    sha1 = res["mixes"]["sha1_round"]
+    n_full = sms * sha1["threads_per_sm"]
+    k2_bound_ms = n_full * (probe_loop * sm_probe.ITERS + probe_other) / issue_per_s * 1e3
+    print(f"K2 bound: {n_full} threads x ({probe_loop} x {sm_probe.ITERS} + {probe_other}) SASS "
+          f"instructions at the issue rate = {k2_bound_ms:.3f} ms; one launch "
+          f"{sha1['seconds_1x'] * 1e3:.3f} ms [{card}]", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": min(issue_ms, probe_ms),
+        "bound_by": "operations", "library_ms": None,
+        "bound_model": "issue_rate" if issue_ms <= probe_ms else "probe_rate",
+        "issue_bound_ms": issue_ms, "probe_bound_ms": probe_ms,
+    }, {
+        "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,
+        "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,
+        "ms": sha1["seconds_1x"] * 1e3, "plain_ms": probe_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "operations", "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,7 @@ states take the broadcast shape of the key block's tensors.
 
 from .common import iv_state, wxor
 from .md5 import IV as MD5_IV, md5_compress
-from .sha1 import IV as SHA1_IV, sha1_compress
+from .sha1 import IV as SHA1_IV, sha1_20_prologue, sha1_compress, sha1_compress_20
 from .sha256 import IV as SHA256_IV, sha256_compress
 
 IPAD = 0x36363636
@@ -50,6 +50,20 @@ def hmac_sha1_20(istate, ostate, m5):
     PBKDF2 iteration shape, exactly two compressions."""
     inner = sha1_compress(istate, list(m5) + [0x80000000] + [0] * 9 + [84 * 8])
     return _outer_sha1(ostate, inner)
+
+
+def hmac_sha1_20_prologue(istate, ostate):
+    """The per-candidate loop-invariant work of :func:`hmac_sha1_20`, for
+    :func:`hmac_sha1_20_hoisted` (the JAX package's PBKDF2 loop shape)."""
+    return sha1_20_prologue(istate), sha1_20_prologue(ostate)
+
+
+def hmac_sha1_20_hoisted(pro, m5):
+    """HMAC-SHA1 of a 20-byte message from hoisted pad-state prologues;
+    bit-identical to :func:`hmac_sha1_20` (the message and the inner
+    digest are both 5 words)."""
+    ipro, opro = pro
+    return sha1_compress_20(opro, sha1_compress_20(ipro, m5))
 
 
 def hmac_sha1_blocks(istate, ostate, msg_blocks):

@@ -2,32 +2,24 @@
 
 The kernel (``csrc/pbkdf2_sha1.cu``) replaces the Pallas TPU kernel
 ``dwpa_tpu/ops/pbkdf2_pallas.py:pbkdf2_sha1_pmk_pallas``; its source
-note says what bounds it and how.  It is compiled at first use with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-under ``build/dwpa_tpu_torch/`` at the repository root, and loaded with
-``ctypes``.  Nothing here runs at import time, so the CPU tests import
-this module on a machine without ``nvcc``.
+note says what bounds it and how.  It is compiled at first use by
+``ops/_nvcc.py`` into a shared library with a plain C interface and
+loaded with ``ctypes``.  Nothing here runs at import time, so the CPU
+tests import this module on a machine without ``nvcc``.
 
 The plain version of the same function is ``ops/pbkdf2.pbkdf2_sha1_pmk``;
 ``models/m22000._pmk_impl`` takes it only for a tensor on the CPU.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 
 import torch
 
+from . import _nvcc
 from .pbkdf2 import check_inputs
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "pbkdf2_sha1.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dwpa_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _nvcc.CSRC / "pbkdf2_sha1.cu"
 
 #: Kernel launches made by :func:`pbkdf2_sha1_pmk_cuda` in this process.
 LAUNCHES = 0
@@ -36,39 +28,11 @@ _lib = None
 _lib_lock = threading.Lock()  # first use may come from any thread
 
 
-def library_path() -> Path:
-    """Where the built library lives: keyed by the source's content, so an
-    edited source never loads a stale build."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libpbkdf2_sha1_{digest}.so"
-
-
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; return its path.
-
-    ``nvcc``'s ``-Xptxas -v`` report (registers, spills) is kept beside
-    the library as ``<name>.ptxas.txt``.  Raises if the build fails.
-    """
-    so = library_path()
-    if so.exists():
-        return so
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
-
-
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(_nvcc.build(SOURCE)[0]))
             fn = lib.pbkdf2_sha1_pmk_launch
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

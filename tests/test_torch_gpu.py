@@ -1,4 +1,5 @@
-"""The port on a CUDA device: the PBKDF2 kernel and the engine.
+"""The port on a CUDA device: the PBKDF2 kernel, the engine and the SM
+probe kernel.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -11,6 +12,7 @@ alone with ``--noconftest``.
 
 import hashlib
 
+import numpy as np
 import pytest
 import torch
 from torch_fixtures import (  # noqa: F401  (cuda_device is a fixture)
@@ -19,7 +21,7 @@ from torch_fixtures import (  # noqa: F401  (cuda_device is a fixture)
 
 from dwpa_tpu_torch.client.challenge import challenge
 from dwpa_tpu_torch.models import m22000 as tm
-from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda, sm_probe
 from dwpa_tpu_torch.ops.common import to_numpy, to_torch
 from dwpa_tpu_torch.utils import bytesops as bo
 
@@ -63,3 +65,17 @@ def test_engine_and_challenge(cuda_device):  # noqa: F811
     founds = eng.crack(slice_dictionary())
     assert len(founds) == 5 and {f.psk for f in founds} == {SLICE_PSK}
     assert pbkdf2_cuda.LAUNCHES > before[0] and pbkdf2.CALLS == before[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix", sorted(sm_probe.MIXES))
+def test_probe_kernel_matches_plain(cuda_device, mix):  # noqa: F811
+    rng = np.random.default_rng(11)
+    for n in (1000, 132 * 128):  # a ragged edge, then whole blocks
+        x = to_torch(rng.integers(0, 2**32, (5, n), dtype=np.uint64).astype(np.uint32),
+                     cuda_device)
+        for iters in (1, 2):
+            before = sm_probe.LAUNCHES
+            got = sm_probe.probe_cuda(x, mix, iters)
+            assert sm_probe.LAUNCHES == before + 1
+            assert torch.equal(got, sm_probe.probe_plain(x, mix, iters))

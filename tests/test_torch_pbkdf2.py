@@ -15,7 +15,7 @@ from torch_fixtures import PBKDF2_ESSID, pbkdf2_inputs, plain_pmk
 from torch_jax_refs import jax_pallas_pmk, jax_xla_pmk
 
 from dwpa_tpu_torch.models import m22000 as tm
-from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+from dwpa_tpu_torch.ops import _nvcc, pbkdf2, pbkdf2_cuda
 from dwpa_tpu_torch.ops.common import to_torch
 from dwpa_tpu_torch.utils import bytesops as bo
 
@@ -81,7 +81,7 @@ def test_pmk_dispatch_takes_plain_version_only_for_cpu(monkeypatch):
 
 
 def test_library_path_is_keyed_by_source():
-    path = pbkdf2_cuda.library_path()
-    assert path.parent == pbkdf2_cuda.BUILD_DIR
+    path = _nvcc.library_path(pbkdf2_cuda.SOURCE)
+    assert path.parent == _nvcc.BUILD_DIR
     assert path.name.startswith("libpbkdf2_sha1_") and path.suffix == ".so"
 
