@@ -20,7 +20,17 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    mixes at 1 and 2 iterations, at full width and at a ragged width
    (exact), then its measurement path (``sm_probe.run``): the four mixes
    at full width, the resident-threads sweep, the PMK/s ceiling, and from
-   the ``sha1_round`` rate K1's measured bound beside its issue-rate one.
+   the ``sha1_round`` rate K1's measured bound beside its issue-rate one;
+6. the volunteer loop: ``TpuCrackClient.run()`` against an in-process
+   stub server that issues phase 4's unit (its five nets, and a gzip of
+   its dictionary as the unit's one dict) and re-checks every submitted
+   PSK with the oracle — challenge, prewarm, get_work, md5-checked
+   download, pass 1, pass 2 through the candidate feed and the CUDA-stream
+   stager, put_work.  All five nets must be found and accepted, through
+   K1 only, with the native packer and the feed's producer thread packing
+   pass 2.  Then a crash after the 4th pass-2 checkpoint and a fresh
+   client's replay of the unit from the resume file, and the unit again
+   with an inline feed (``feed_workers=0``).
 
 It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -28,12 +38,18 @@ nonzero and the ``ok`` line is not printed.  Without a CUDA device it
 exits nonzero before doing anything.
 """
 
+import collections
+import gzip
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import sys
+import threading
 import time
+import urllib.parse
+from pathlib import Path
 
 import numpy as np
 
@@ -48,6 +64,10 @@ REPLACES = "dwpa_tpu/ops/pbkdf2_pallas.py:88"
 PROBE_SOURCE = "dwpa_tpu_torch/csrc/sm_probe.cu"
 PROBE_REPLACES = "dwpa_tpu/ops/vpu_probe.py:94"
 PROBE_RAGGED = 1037          # not a multiple of the 128-thread block
+STUB_URL = "http://stub/"
+STUB_DICT = "dict/phase4.txt.gz"
+STUB_HKEY = "chip-smoke-unit"
+CLIENT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def check(cond, msg):
@@ -177,6 +197,7 @@ def phase_unit(dev, rng, card):
         check(f is not None, f"net not cracked: {raw[:40]}")
         check((f.psk, f.nc, f.endian, f.pmk) == (PSK, nc, endian, pmk),
               f"wrong find for keyver {f.line.keyver}: {(f.psk, f.nc, f.endian)}")
+    unit_pmk_s = UNIT_WORDS / wall
     print(f"phase 4 unit: {len(founds)}/5 nets cracked, {UNIT_WORDS} words in {wall:.3f} s = "
           f"{UNIT_WORDS / wall:.1f} PMK/s; kernel launches {launches}, plain PBKDF2 calls "
           f"{plain_calls}; stage host seconds {eng.stage_times} [{card}]", flush=True)
@@ -211,7 +232,7 @@ def phase_unit(dev, rng, card):
           f"parts: {', '.join(parts)}), "
           f"gate {gate_ms:.3f} ms (no-hit batch), decode {decode_ms:.3f} ms (hit batch, "
           f"oracle re-check of 5 nets) [{card}]", flush=True)
-    return launches, k1_ms, pw, step
+    return launches, k1_ms, pw, step, words, unit_pmk_s
 
 
 def phase_probe(dev, rng, card):
@@ -269,6 +290,218 @@ def phase_probe(dev, rng, card):
     return res, launches, err, plain_ms
 
 
+class Crash(Exception):
+    """Raised by the crash leg's resume writer: a client killed mid-unit."""
+
+
+def stub_server(lines):
+    """The server side of phase 4's work unit, in process.
+
+    A ``ServerAPI`` whose transport answers the client's requests as the
+    repo's server would: one ``get_work`` unit (then "No nets"), the
+    unit's dictionary at its ``dpath``, an empty version manifest, and
+    ``put_work``, which re-checks every submitted PSK with the oracle and
+    answers OK only when all verify.  It never asks the client to wait.
+    """
+    from dwpa_tpu_torch.client.protocol import ServerAPI
+    from dwpa_tpu_torch.models import hashline as hl
+    from dwpa_tpu_torch.oracle import m22000 as oracle
+
+    nets = {}
+    for ln in lines:
+        h = hl.parse(ln)
+        nets.setdefault(h.mac_ap.hex(), []).append(h)
+
+    class StubServer(ServerAPI):
+        def __init__(self, blob, dhash):
+            super().__init__(STUB_URL, max_tries=1, sleep=self.never_wait)
+            self.blob, self.dhash = blob, dhash
+            self.issued = 0
+            self.verdicts = []   # per put_work: [(bssid, verified), ...]
+
+        @staticmethod
+        def never_wait(seconds):
+            raise RuntimeError(f"the client asked the stub server to wait {seconds} s")
+
+        def _transport(self, url, body=None, headers=None):
+            if url.endswith("hc/dwpa_tpu.version"):
+                return b""
+            raise ConnectionError(f"stub server: no route to {url}")
+
+        def fetch(self, url, data=None, max_tries=None):
+            query = urllib.parse.urlparse(url).query
+            if query.startswith("get_work="):
+                if self.issued:
+                    return b"No nets"
+                self.issued += 1
+                return json.dumps({
+                    "hkey": STUB_HKEY, "epoch": 1,
+                    "dicts": [{"dhash": self.dhash, "dpath": STUB_DICT}],
+                    "hashes": list(lines)}).encode()
+            if query == "put_work":
+                verdict = [(c["k"], any(
+                    oracle.check_key_m22000(h, [bytes.fromhex(c["v"])]) is not None
+                    for h in nets.get(c["k"], ()))) for c in data["cand"]]
+                self.verdicts.append(verdict)
+                return b"OK" if verdict and all(ok for _, ok in verdict) else b"Rejected"
+            if url.endswith(STUB_DICT):
+                return self.blob
+            raise ConnectionError(f"stub server: no route to {url}")
+
+    return StubServer
+
+
+def feed_seconds(reg, family, feed):
+    """(observations, summed seconds) of a ``dwpa_feed_*`` histogram."""
+    for s in reg.snapshot().get(family, {}).get("samples", ()):
+        if s["labels"] == {"feed": feed}:
+            return int(s["count"]), s["sum"]
+    return 0, 0.0
+
+
+def check_founds(founds, lines, what):
+    by_line = {f.line.raw: f for f in founds}
+    check(len(founds) == len(lines), f"{what}: {len(founds)}/{len(lines)} nets cracked")
+    for raw, (nc, endian) in lines:
+        f = by_line.get(raw)
+        check(f is not None, f"{what}: net not cracked: {raw[:40]}")
+        check((f.psk, f.nc, f.endian) == (PSK, nc, endian),
+              f"{what}: wrong find for keyver {f.line.keyver}: {(f.psk, f.nc, f.endian)}")
+
+
+def make_client(server, workdir, feed_workers, label):
+    """A ``TpuCrackClient`` for the stub server's unit at full batch, with
+    its own registry; returns (client, registry)."""
+    from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
+    from dwpa_tpu_torch.obs import MetricsRegistry
+
+    reg = MetricsRegistry()
+    cfg = ClientConfig(base_url=STUB_URL, workdir=str(workdir), batch_size=UNIT_BATCH,
+                       max_work_units=1, feed_workers=feed_workers, device="cuda:0")
+    return TpuCrackClient(cfg, api=server, registry=reg,
+                          log=lambda msg: print(f"phase 6 {label} client: {msg}", flush=True)), reg
+
+
+def report_unit(client, reg, label, unit_pmk_s, card):
+    res = client.last_result
+    p1 = reg.value("dwpa_client_pmk_per_s", **{"pass": "1"})
+    p2 = reg.value("dwpa_client_pmk_per_s", **{"pass": "2"})
+    prewarm = client.tracer.records("prewarm")[-1]
+    starve = feed_seconds(reg, "dwpa_feed_consumer_starve_seconds", "pass2")
+    stall = feed_seconds(reg, "dwpa_feed_producer_stall_seconds", "pass2")
+    print(f"phase 6 {label}: unit {res.elapsed:.3f} s wall, {res.candidates_tried} candidates; "
+          f"pass-1 {p1 or 0.0:.1f} PMK/s, pass-2 {p2 or 0.0:.1f} PMK/s (phase 4 crack "
+          f"{unit_pmk_s:.1f} PMK/s); stage host seconds {res.stage_times}; pass-2 feed: "
+          f"consumer starve {starve[1]:.3f} s over {starve[0]} blocks, producer stall "
+          f"{stall[1]:.3f} s over {stall[0]} waits; prewarm "
+          f"{prewarm['t1'] - prewarm['t0']:.3f} s [{card}]", flush=True)
+    return p2
+
+
+def phase_client(card, words, unit_pmk_s):
+    """Phase 6: the volunteer loop on the card against the stub server."""
+    from dwpa_tpu_torch import native
+    from dwpa_tpu_torch.models import m22000 as m
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+
+    lines = unit_lines()
+    raw = [ln for ln, _ in lines]
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    dhash = hashlib.md5(blob).hexdigest()
+    Server = stub_server(raw)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+
+    # -- the unit through TpuCrackClient.run(), feed_workers=1 -------------
+    packers = collections.Counter()   # thread name -> native pack calls
+    real_pack = m.pack_candidates_fast
+
+    def counting_pack(*args, **kwargs):
+        packers[threading.current_thread().name] += 1
+        return real_pack(*args, **kwargs)
+
+    server = Server(blob, dhash)
+    client, reg = make_client(server, CLIENT_DIR / "unit", 1, "feed_workers=1")
+    m.pack_candidates_fast = counting_pack
+    pbkdf2_cuda.LAUNCHES = 0
+    pbkdf2.CALLS = 0
+    native.CALLS = 0
+    try:
+        t0 = time.perf_counter()
+        done = client.run()
+        wall = time.perf_counter() - t0
+    finally:
+        m.pack_candidates_fast = real_pack
+    launches, plain_calls, native_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS, native.CALLS
+    check(done == 1, f"run() completed {done} units")
+    res = client.last_result
+    check_founds(res.founds, lines, "phase 6")
+    check(res.accepted and len(server.verdicts) == 1 and len(server.verdicts[0]) == len(lines)
+          and all(ok for _, ok in server.verdicts[0]),
+          f"unit not accepted with every PSK verified: {server.verdicts}")
+    check(len(Path(client.potfile).read_text().splitlines()) == len(lines), "potfile lines")
+    check(not Path(client.resume_path).exists(), "resume not cleared")
+    check(client.outbox.pending_count() == 0, "outbox not empty")
+    check(launches > 0, "the client never launched the PBKDF2 kernel")
+    check(plain_calls == 0, f"the client ran the plain PBKDF2 {plain_calls} times")
+    check(native_calls > 0, "the native packer never ran")
+    pass2_blocks = UNIT_WORDS // UNIT_BATCH
+    check(packers["dwpa-feed-pass2-0"] >= pass2_blocks,
+          f"the pass-2 producer thread packed {packers['dwpa-feed-pass2-0']} blocks")
+    print(f"phase 6 run: 1 unit accepted, {len(res.founds)}/5 nets verified by the stub "
+          f"server; run() {wall:.3f} s with challenge and prewarm; K1 launches {launches}, plain "
+          f"PBKDF2 calls {plain_calls}, native pack calls {native_calls} by thread "
+          f"{dict(packers)}; potfile {len(lines)} lines, resume cleared, outbox empty [{card}]",
+          flush=True)
+    report_unit(client, reg, "feed_workers=1", unit_pmk_s, card)
+
+    # -- crash after the 4th pass-2 checkpoint, then a fresh client --------
+    server = Server(blob, dhash)
+    crashed, _ = make_client(server, CLIENT_DIR / "crash", 1, "crashing")
+    in_pass2 = []
+    checkpoints = []
+    real_fetch, real_write = crashed._fetch_pass2_paths, crashed._write_resume
+
+    def fetch_pass2(work):
+        in_pass2.append(True)
+        return real_fetch(work)
+
+    def write_then_crash(work):
+        real_write(work)
+        if in_pass2 and "_progress" in work:
+            checkpoints.append(work["_progress"]["done"])
+            if len(checkpoints) == 4:
+                raise Crash
+
+    crashed._fetch_pass2_paths, crashed._write_resume = fetch_pass2, write_then_crash
+    try:
+        crashed.run()
+        check(False, "the crashing client finished its unit")
+    except Crash:
+        pass
+    checkpointed = json.loads(Path(crashed.resume_path).read_text())["_progress"]["done"]
+    pass1 = len(list(crashed._pass1_candidates({"hashes": raw}, [])))
+    check(checkpointed == checkpoints[-1] == pass1 + 4 * UNIT_BATCH,
+          f"checkpoint {checkpointed} after pass-2 checkpoints {checkpoints} (pass 1: {pass1})")
+    revived, reg = make_client(server, CLIENT_DIR / "crash", 1, "revived")
+    check(revived.run() == 1, "the revived client did not complete the unit")
+    skipped = int(reg.value("dwpa_client_resume_skipped_total") or 0)
+    check(skipped == checkpointed, f"resume skipped {skipped}, checkpointed {checkpointed}")
+    check_founds(revived.last_result.founds, lines, "phase 6 resume")
+    check(revived.last_result.accepted and server.issued == 1
+          and all(ok for _, ok in server.verdicts[-1]), "the replayed unit was not accepted")
+    print(f"phase 6 crash and resume: crashed after pass-2 checkpoints {checkpoints}; the fresh "
+          f"client skipped {skipped} candidates, tried {revived.last_result.candidates_tried}, "
+          f"found {len(revived.last_result.founds)}/5 and was accepted [{card}]", flush=True)
+
+    # -- the same unit with an inline feed ---------------------------------
+    server = Server(blob, dhash)
+    inline, reg = make_client(server, CLIENT_DIR / "inline", 0, "feed_workers=0")
+    check(inline.run() == 1 and inline.last_result.accepted, "inline-feed unit not accepted")
+    check_founds(inline.last_result.founds, lines, "phase 6 inline")
+    report_unit(inline, reg, "feed_workers=0", unit_pmk_s, card)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -279,6 +512,7 @@ def main():
     from dwpa_tpu_torch.ops import _nvcc, pbkdf2, pbkdf2_cuda, sm_probe
     from dwpa_tpu_torch.ops.sass import loop_opcodes, loop_span, sass_text
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = sm_probe.nvidia_smi("name,power.limit")
     print(f"phase 1 device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -309,7 +543,7 @@ def main():
     check(pbkdf2_cuda.LAUNCHES > 0 and pbkdf2.CALLS == 0, "challenge bypassed the kernel")
     print("phase 3 challenge: passed (aaaa1234 on the PMKID and EAPOL lines)", flush=True)
 
-    launches, k1_ms, pw, step = phase_unit(dev, rng, card)
+    launches, k1_ms, pw, step, words, unit_pmk_s = phase_unit(dev, rng, card)
 
     # The plain version at the main path's shape, on the same batch.
     pmk_kernel = step.compute_pmk(pw)
@@ -322,6 +556,7 @@ def main():
     check(torch.equal(pmk_kernel, pmk_plain), "kernel != plain on the main-path batch")
 
     res, probe_launches, probe_err, probe_plain_ms = phase_probe(dev, rng, card)
+    phase_client(card, words, unit_pmk_s)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -350,6 +585,7 @@ def main():
     print(f"K2 bound: {n_full} threads x ({probe_loop} x {sm_probe.ITERS} + {probe_other}) SASS "
           f"instructions at the issue rate = {k2_bound_ms:.3f} ms; one launch "
           f"{sha1['seconds_1x'] * 1e3:.3f} ms [{card}]", flush=True)
+    print(f"chip_smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,

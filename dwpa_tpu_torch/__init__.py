@@ -11,7 +11,14 @@ counterpart is easy to find):
 - ``dwpa_tpu_torch.models``   — hashline parsing and the m22000 engine.
 - ``dwpa_tpu_torch.parallel`` — device selection and the crack step.
 - ``dwpa_tpu_torch.oracle``   — the hashlib verification oracle.
-- ``dwpa_tpu_torch.client``   — the known-PSK challenge gate.
+- ``dwpa_tpu_torch.native``   — the C++ candidate packer (ctypes).
+- ``dwpa_tpu_torch.gen``      — dictionary streams and candidate generators.
+- ``dwpa_tpu_torch.feed``     — block framing, the threaded candidate feed
+  and the CUDA side-stream stager.
+- ``dwpa_tpu_torch.obs``      — metrics, spans and logging.
+- ``dwpa_tpu_torch.client``   — the volunteer client: challenge gate,
+  transport, found outbox, the get_work -> crack -> put_work loop and its
+  CLI (``python -m dwpa_tpu_torch.client``).
 
 32-bit words travel as ``torch.int32`` (addition wraps; logical right
 shifts mask off the sign fill); they are reinterpreted as uint32 only at

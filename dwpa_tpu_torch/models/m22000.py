@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..native import pack_candidates_fast
 from ..ops import hmac as hm
 from ..ops.aes import aes128_cmac
 from ..ops.common import bswap32, shr32, to_numpy, to_torch
@@ -419,7 +420,10 @@ class M22000Engine:
         self._full = {}   # essid -> original list[PreppedNet]
         self._steps = {}  # essid -> CrackStep (parallel.step.build_crack_step)
         # Per-stage wall-clock accumulators: host pack + H2D enqueue /
-        # device dispatch / gate sync + decode.
+        # device dispatch / gate sync + decode.  For feed-prepacked
+        # blocks "prepare" counts only the residual on-thread work (the
+        # device staging); producer-side pack time lives in the feed's
+        # ``feed:produce`` spans instead, so the two never double-count.
         self.stage_times = {"prepare": 0.0, "dispatch": 0.0, "collect": 0.0}
         for line in lines:
             try:
@@ -460,6 +464,18 @@ class M22000Engine:
             self._steps[essid] = step
         return step
 
+    def _h2d(self, rows, stager=None):
+        """Start the copy of contiguous uint32 ``rows`` to the device as
+        int32 words: on the stager's side stream when one is given, else
+        through pinned memory with a non-blocking copy on the current
+        stream.  On the CPU the rows stay a host tensor."""
+        if stager is not None:
+            return stager.h2d(rows)
+        t = torch.from_numpy(rows.view(np.int32))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def _prepare(self, passwords):
         """Host stage: decode, filter, pad, pack, and start the async H2D.
 
@@ -469,9 +485,22 @@ class M22000Engine:
         with compute (see ``crack``).
         """
         t0 = time.perf_counter()
+        plist = passwords if isinstance(passwords, list) else list(passwords)
+        if not plist:
+            return None
+        # Native fast path: $HEX decode + length filter + pack fused in
+        # one C pass (native/pack_fast.cpp).  Falls back to the Python
+        # pipeline when the library is unavailable or the batch isn't
+        # plain bytes.
+        fast = pack_candidates_fast(plist, MIN_PSK_LEN, MAX_PSK_LEN,
+                                    capacity=max(self.batch_size, len(plist)))
+        if fast is not None:
+            self.stage_times["prepare"] += time.perf_counter() - t0
+            return self._prepare_staged(*fast)
+
         # $HEX[...] notation decodes to raw bytes before hashing, matching
         # the server's candidate handling (hc_unhex).
-        pws = [oracle.hc_unhex(p) for p in passwords]
+        pws = [oracle.hc_unhex(p) for p in plist]
         pws = [p for p in pws if MIN_PSK_LEN <= len(p) <= MAX_PSK_LEN]
         if not pws:
             return None
@@ -481,11 +510,75 @@ class M22000Engine:
             pws = pws + [b"\x00" * MIN_PSK_LEN] * (self.batch_size - nvalid)
         packed = bo.pack_passwords_be(pws)
         w = _trim_cols(int(lens.max()))
-        rows = torch.from_numpy(np.ascontiguousarray(packed[:, :w]).view(np.int32))
-        if self.device.type == "cuda":
-            rows = rows.pin_memory().to(self.device, non_blocking=True)
+        rows = self._h2d(np.ascontiguousarray(packed[:, :w]))
         self.stage_times["prepare"] += time.perf_counter() - t0
         return _PackedWords(packed, lens), nvalid, rows
+
+    def host_packer(self):
+        """Pure-host packing closure for feed producer threads.
+
+        Captures the batch geometry as a plain int so the closure touches
+        no engine or device state from the thread — decode, filter and
+        pack only; the consumer thread stages the result via
+        ``_prepare_staged``.  Returns None for a block when the native
+        packer is unavailable (the block then takes the full ``_prepare``
+        path on the consumer thread, unchanged semantics).
+        ``pack(words, pre=...)`` accepts an already-packed
+        ``(rows, lens, nvalid)`` and returns it as is (the feed detects
+        this via ``pack.supports_pre``).
+        """
+        bs = self.batch_size
+
+        def pack(words, pre=None):
+            if pre is not None:
+                return pre
+            return pack_candidates_fast(words, MIN_PSK_LEN, MAX_PSK_LEN,
+                                        capacity=max(bs, len(words)))
+
+        pack.supports_pre = True
+        return pack
+
+    def _prepare_staged(self, packed, lens, nvalid, stager=None):
+        """Consumer-side residual of ``_prepare`` for a feed-prepacked
+        block: only the device staging (column trim + async H2D, on the
+        stager's side stream when one is given) — the packing already
+        happened on a producer thread and is accounted to the feed's
+        ``feed:produce`` spans, so ``stage_times["prepare"]`` accumulates
+        just this residual.
+        """
+        t0 = time.perf_counter()
+        if nvalid == 0:
+            return None
+        # Size the device batch from the post-filter count: an oversize
+        # batch full of invalid words must not inflate the shape.
+        target = max(self.batch_size, nvalid)
+        w = _trim_cols(int(lens.max()))
+        rows = self._h2d(np.ascontiguousarray(packed[:target, :w]), stager)
+        self.stage_times["prepare"] += time.perf_counter() - t0
+        return _PackedWords(packed, lens), nvalid, rows
+
+    def _prepare_block(self, block, stager=None):
+        """Prep one feed block (``feed.framing.Block``): the staged fast
+        path when a producer prepacked it, full ``_prepare`` otherwise.
+        Blocks for on-device mask generation and PMK-store mixed blocks
+        are refused until their slices land."""
+        prep = getattr(block, "prep", None)
+        if prep is None:
+            return self._prepare(block.words)
+        if hasattr(prep, "mask_gen"):
+            raise NotImplementedError(
+                "on-device mask generation is not ported yet "
+                "(ROADMAP later slice 7)")
+        if hasattr(prep, "materialize"):
+            # a lazy packed prep (framing.PackedSlices) normally
+            # materializes on the feed's producer threads; blocks
+            # consumed without a feed materialize here instead
+            prep = prep.materialize()
+        if not isinstance(prep, tuple):
+            raise NotImplementedError(
+                "PMK-store mixed blocks are not ported yet "
+                "(ROADMAP later slice 4)")
+        return self._prepare_staged(*prep, stager=stager)
 
     def _dispatch(self, prep):
         """Enqueue the crack step for every live ESSID group (no host sync).
@@ -597,5 +690,35 @@ class M22000Engine:
                 batch = []
         if batch:
             submit(batch)
+        pipe.drain()
+        return pipe.founds
+
+    def crack_blocks(self, blocks, on_batch=None) -> list:
+        """Crack a framed candidate-block stream (``dwpa_tpu_torch.feed``).
+
+        The feed-era twin of ``crack``: instead of slicing a flat word
+        iterable itself, the engine consumes ``Block``s whose
+        ``(offset, count)`` framing was fixed by the producer — so
+        ``on_batch(consumed, founds)`` reports each block's global
+        candidate coverage (its count), which is what the client's
+        resume checkpoint needs.
+
+        Staging is double-buffered (``feed.staging.DeviceStager``): the
+        next block's candidate H2D is enqueued on a side stream before
+        this block's steps dispatch, and the ``_Pipeline`` trails the
+        hits-gate sync ``PIPELINE_DEPTH`` batches behind — packing
+        (producer threads), upload (stager) and gate latency (pipeline)
+        all hide behind PBKDF2 compute.
+        """
+        from ..feed.staging import DeviceStager
+
+        pipe = _Pipeline(self, on_batch)
+        for block, prep in DeviceStager(self, blocks):
+            if not self.groups and not pipe.active:
+                break
+            if prep is not None and self.groups:
+                pipe.push(self._dispatch(prep), block.count)
+            else:
+                pipe.skip(block.count)
         pipe.drain()
         return pipe.founds

@@ -79,3 +79,50 @@ def test_probe_kernel_matches_plain(cuda_device, mix):  # noqa: F811
             got = sm_probe.probe_cuda(x, mix, iters)
             assert sm_probe.LAUNCHES == before + 1
             assert torch.equal(got, sm_probe.probe_plain(x, mix, iters))
+
+
+@pytest.mark.gpu
+def test_stager_rows_equal_host_rows(cuda_device):  # noqa: F811
+    """Five blocks staged on the side stream, two ahead of dispatch: each
+    block's device rows equal its host rows when the compute stream
+    reads them, while PBKDF2 batches keep the compute stream busy."""
+    from dwpa_tpu_torch.feed import CandidateFeed, DeviceStager
+    from dwpa_tpu_torch.obs import MetricsRegistry
+
+    bs = 65536
+    rng = np.random.default_rng(17)
+    words = [bytes(rng.integers(33, 127, int(k), dtype=np.uint8))
+             for k in rng.integers(8, 40, 5 * bs)]
+    eng = tm.M22000Engine(five_net_group(), batch_size=bs, device=cuda_device)
+    feed = CandidateFeed(iter(words), bs, prepack=eng.host_packer(),
+                         registry=MetricsRegistry())
+    stager = DeviceStager(eng, feed, depth=2)
+    step = eng._step_for(next(iter(eng.groups)))
+    n = 0
+    for blk, prep in stager:
+        rows, lens, nvalid = blk.prep
+        w = tm._trim_cols(int(lens.max()))
+        assert prep[2].is_cuda and prep[1] == nvalid
+        step.compute_pmk(prep[2])  # queue a kernel on the compute stream
+        assert np.array_equal(prep[2].cpu().numpy(), rows[:bs, :w].view(np.int32))
+        n += 1
+    feed.close()
+    assert n == stager.staged == 5 and stager.stream is not None
+
+
+@pytest.mark.gpu
+def test_crack_blocks_on_the_card(cuda_device):  # noqa: F811
+    from dwpa_tpu_torch.feed import CandidateFeed
+    from dwpa_tpu_torch.obs import MetricsRegistry
+
+    words = [b"card-filler-%06d" % i for i in range(3000)] + [SLICE_PSK]
+    eng = tm.M22000Engine(five_net_group(), batch_size=1024, device=cuda_device)
+    feed = CandidateFeed(iter(words), 1024, prepack=eng.host_packer(),
+                         registry=MetricsRegistry())
+    before = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    reports = []
+    founds = eng.crack_blocks(feed, on_batch=lambda c, f: reports.append((c, len(f))))
+    feed.close()
+    assert len(founds) == 5 and {f.psk for f in founds} == {SLICE_PSK}
+    assert reports == [(1024, 0), (1024, 0), (953, 5)]
+    assert pbkdf2_cuda.LAUNCHES > before[0] and pbkdf2.CALLS == before[1]
