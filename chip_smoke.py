@@ -30,7 +30,21 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    K1 only, with the native packer and the feed's producer thread packing
    pass 2.  Then a crash after the 4th pass-2 checkpoint and a fresh
    client's replay of the unit from the resume file, and the unit again
-   with an inline feed (``feed_workers=0``).
+   with an inline feed (``feed_workers=0``);
+7. the rules path: (a) every rule of the bundled ``wpa.rule`` expands a
+   seeded 131072-word base batch (1-63 bytes, bytes >= 128 included) on
+   the card exactly as on the CPU and as the host interpreter does on 4096
+   sampled rows; (b) the engine's ``crack_rules_blocks`` on the JAX
+   bench's ``rules_device`` configuration (one PMKID net, 8 rules, 6 x
+   131072 base words), the planted PSK found through K1 only, and K1 held
+   to the plain version on an expanded 16-column batch; (c) the volunteer
+   loop on a rules unit (phase 6's five nets, each with its own PSK made
+   by a different rule, a 262,144-word dict and the first 16 rules of
+   ``wpa.rule``, plus a 65,536-word ``cracked.txt.gz`` that pass 1
+   expands through those rules on the host), accepted, then a crash after
+   the first pass-2 block and a fresh client's exact replay; the first
+   run expands pass 1 in process and the crashing one on a pool of
+   ``RULE_WORKERS`` processes, and both expansions are also timed alone.
 
 It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -38,6 +52,7 @@ nonzero and the ``ok`` line is not printed.  Without a CUDA device it
 exits nonzero before doing anything.
 """
 
+import base64
 import collections
 import gzip
 import hashlib
@@ -66,8 +81,16 @@ PROBE_REPLACES = "dwpa_tpu/ops/vpu_probe.py:94"
 PROBE_RAGGED = 1037          # not a multiple of the 128-thread block
 STUB_URL = "http://stub/"
 STUB_DICT = "dict/phase4.txt.gz"
+STUB_CRACKED = "dict/cracked.txt.gz"
 STUB_HKEY = "chip-smoke-unit"
 CLIENT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+EXPAND_SAMPLE = 4096                   # host-interpreter rows checked per rule
+RULES_DEVICE = [":", "u", "c", "$1", "^w", "t", "T0", "$1 $2 $3"]   # bench.py:191
+RULES_FLUSHES = 6
+RULES_UNIT_WORDS = 2 * UNIT_BATCH
+RULES_UNIT_RULES = 16                  # the first rules of wpa.rule
+RULES_CRACKED_WORDS = 1 << 16          # pass 1: 16 rules -> 8 full batches
+RULE_WORKERS = 4                       # the pooled pass-1 leg (8-core host)
 
 
 def check(cond, msg):
@@ -294,7 +317,7 @@ class Crash(Exception):
     """Raised by the crash leg's resume writer: a client killed mid-unit."""
 
 
-def stub_server(lines):
+def stub_server(lines, rules_text=None, cracked=None):
     """The server side of phase 4's work unit, in process.
 
     A ``ServerAPI`` whose transport answers the client's requests as the
@@ -302,6 +325,11 @@ def stub_server(lines):
     unit's dictionary at its ``dpath``, an empty version manifest, and
     ``put_work``, which re-checks every submitted PSK with the oracle and
     answers OK only when all verify.  It never asks the client to wait.
+    ``rules_text`` (hashcat rule lines) rides the unit base64-encoded, as
+    the repo's server attaches a dict's rules; ``cracked`` (gzip bytes) is
+    served as the unit's ``cracked.txt.gz``, which the client runs in
+    pass 1 (there is no ``rkg.txt.gz``: its download fails, as the client
+    allows).
     """
     from dwpa_tpu_torch.client.protocol import ServerAPI
     from dwpa_tpu_torch.models import hashline as hl
@@ -334,10 +362,15 @@ def stub_server(lines):
                 if self.issued:
                     return b"No nets"
                 self.issued += 1
-                return json.dumps({
-                    "hkey": STUB_HKEY, "epoch": 1,
-                    "dicts": [{"dhash": self.dhash, "dpath": STUB_DICT}],
-                    "hashes": list(lines)}).encode()
+                unit = {"hkey": STUB_HKEY, "epoch": 1,
+                        "dicts": [{"dhash": self.dhash, "dpath": STUB_DICT}],
+                        "hashes": list(lines)}
+                if cracked is not None:
+                    unit["dicts"].append({"dhash": hashlib.md5(cracked).hexdigest(),
+                                          "dpath": STUB_CRACKED})
+                if rules_text:
+                    unit["rules"] = base64.b64encode(rules_text.encode()).decode()
+                return json.dumps(unit).encode()
             if query == "put_work":
                 verdict = [(c["k"], any(
                     oracle.check_key_m22000(h, [bytes.fromhex(c["v"])]) is not None
@@ -346,6 +379,8 @@ def stub_server(lines):
                 return b"OK" if verdict and all(ok for _, ok in verdict) else b"Rejected"
             if url.endswith(STUB_DICT):
                 return self.blob
+            if cracked is not None and url.endswith(STUB_CRACKED):
+                return cracked
             raise ConnectionError(f"stub server: no route to {url}")
 
     return StubServer
@@ -359,17 +394,20 @@ def feed_seconds(reg, family, feed):
     return 0, 0.0
 
 
-def check_founds(founds, lines, what):
+def check_founds(founds, lines, what, psks=None):
+    """Every line found once, with its PSK (``psks[i]``, else PSK), NC
+    delta and endian."""
     by_line = {f.line.raw: f for f in founds}
     check(len(founds) == len(lines), f"{what}: {len(founds)}/{len(lines)} nets cracked")
-    for raw, (nc, endian) in lines:
+    for i, (raw, (nc, endian)) in enumerate(lines):
         f = by_line.get(raw)
         check(f is not None, f"{what}: net not cracked: {raw[:40]}")
-        check((f.psk, f.nc, f.endian) == (PSK, nc, endian),
+        psk = PSK if psks is None else psks[i]
+        check((f.psk, f.nc, f.endian) == (psk, nc, endian),
               f"{what}: wrong find for keyver {f.line.keyver}: {(f.psk, f.nc, f.endian)}")
 
 
-def make_client(server, workdir, feed_workers, label):
+def make_client(server, workdir, feed_workers, label, phase="phase 6", rule_workers=0):
     """A ``TpuCrackClient`` for the stub server's unit at full batch, with
     its own registry; returns (client, registry)."""
     from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
@@ -377,19 +415,20 @@ def make_client(server, workdir, feed_workers, label):
 
     reg = MetricsRegistry()
     cfg = ClientConfig(base_url=STUB_URL, workdir=str(workdir), batch_size=UNIT_BATCH,
-                       max_work_units=1, feed_workers=feed_workers, device="cuda:0")
+                       max_work_units=1, feed_workers=feed_workers, device="cuda:0",
+                       rule_workers=rule_workers)
     return TpuCrackClient(cfg, api=server, registry=reg,
-                          log=lambda msg: print(f"phase 6 {label} client: {msg}", flush=True)), reg
+                          log=lambda msg: print(f"{phase} {label} client: {msg}", flush=True)), reg
 
 
-def report_unit(client, reg, label, unit_pmk_s, card):
+def report_unit(client, reg, label, unit_pmk_s, card, phase="phase 6"):
     res = client.last_result
     p1 = reg.value("dwpa_client_pmk_per_s", **{"pass": "1"})
     p2 = reg.value("dwpa_client_pmk_per_s", **{"pass": "2"})
     prewarm = client.tracer.records("prewarm")[-1]
     starve = feed_seconds(reg, "dwpa_feed_consumer_starve_seconds", "pass2")
     stall = feed_seconds(reg, "dwpa_feed_producer_stall_seconds", "pass2")
-    print(f"phase 6 {label}: unit {res.elapsed:.3f} s wall, {res.candidates_tried} candidates; "
+    print(f"{phase} {label}: unit {res.elapsed:.3f} s wall, {res.candidates_tried} candidates; "
           f"pass-1 {p1 or 0.0:.1f} PMK/s, pass-2 {p2 or 0.0:.1f} PMK/s (phase 4 crack "
           f"{unit_pmk_s:.1f} PMK/s); stage host seconds {res.stage_times}; pass-2 feed: "
           f"consumer starve {starve[1]:.3f} s over {starve[0]} blocks, producer stall "
@@ -479,7 +518,7 @@ def phase_client(card, words, unit_pmk_s):
     except Crash:
         pass
     checkpointed = json.loads(Path(crashed.resume_path).read_text())["_progress"]["done"]
-    pass1 = len(list(crashed._pass1_candidates({"hashes": raw}, [])))
+    pass1 = len(list(crashed._pass1_candidates({"hashes": raw}, [], [])))
     check(checkpointed == checkpoints[-1] == pass1 + 4 * UNIT_BATCH,
           f"checkpoint {checkpointed} after pass-2 checkpoints {checkpoints} (pass 1: {pass1})")
     revived, reg = make_client(server, CLIENT_DIR / "crash", 1, "revived")
@@ -500,6 +539,266 @@ def phase_client(card, words, unit_pmk_s):
     check_founds(inline.last_result.founds, lines, "phase 6 inline")
     report_unit(inline, reg, "feed_workers=0", unit_pmk_s, card)
     shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    return launches
+
+
+def phase_expand(dev, rng, card):
+    """Phase 7a: every rule of wpa.rule over one seeded 131072-word base
+    batch on the card, against the same function on CPU tensors (all
+    rows) and the host interpreter (sampled rows).  Returns the median
+    expand ms per rule."""
+    import torch
+
+    from dwpa_tpu_torch.ops.common import to_numpy
+    from dwpa_tpu_torch.rules import wpa_rules
+    from dwpa_tpu_torch.rules.device import encode_rule, expand_batch, simulate_lens
+    from dwpa_tpu_torch.utils import bytesops as bo
+
+    lens = rng.integers(1, 64, UNIT_BATCH)
+    blob = rng.integers(1, 256, int(lens.sum()), dtype=np.uint8).tobytes()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    words = [blob[offs[i]:offs[i + 1]] for i in range(UNIT_BATCH)]
+    packed = torch.from_numpy(bo.pack_passwords_be(words).view(np.int32))
+    lens_t = torch.from_numpy(lens.astype(np.int32))
+    packed_dev, lens_dev = packed.to(dev), lens_t.to(dev)
+    sample = rng.choice(UNIT_BATCH, EXPAND_SAMPLE, replace=False)
+    rules = wpa_rules()
+    check(len(rules) == 105, f"wpa.rule has {len(rules)} rules")
+    times, valid_rows, excused = [], 0, 0
+    for rule in rules:
+        steps = encode_rule(rule)
+        got = expand_batch(packed_dev, lens_dev, steps)
+        ref = expand_batch(packed, lens_t, steps)
+        check(torch.equal(got.cpu(), ref), f"expand on the card != CPU for rule {rule.text!r}")
+        out = to_numpy(got)
+        out_lens, hostneed = simulate_lens(rule, lens[sample])
+        for k, i in enumerate(sample):
+            want = rule.apply(words[i])
+            if want is not None and not 8 <= len(want) <= 63:
+                want = None
+            if hostneed[k]:
+                excused += 1
+                check(not out[i].any(), f"rule {rule.text!r}: overflow row {i} not zeroed")
+                continue
+            have = (bo.words_to_bytes_be(out[i])[: int(out_lens[k])]
+                    if out[i].any() else None)
+            check(have == want, f"rule {rule.text!r} on row {i}: {have!r} != host {want!r}")
+            valid_rows += want is not None
+        times.append(cuda_ms(lambda: expand_batch(packed_dev, lens_dev, steps), 5))
+    med = statistics.median(times)
+    print(f"phase 7a expand: {len(rules)} rules x {UNIT_BATCH} words exact on the card vs CPU "
+          f"(all rows) and vs the host interpreter ({EXPAND_SAMPLE} rows a rule: {valid_rows} "
+          f"valid candidates, {excused} overflow rows excused); expand ms per rule median "
+          f"{med:.3f}, min {min(times):.3f}, max {max(times):.3f} (CUDA events, median of 5 "
+          f"each) [{card}]", flush=True)
+    return med
+
+
+def phase_rules_engine(dev, rng, card, expand_ms):
+    """Phase 7b: crack_rules_blocks on the JAX bench's rules_device
+    configuration.  Returns K1's launches and its error against the plain
+    version on an expanded batch."""
+    import torch
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.feed import frame_blocks
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.rules import parse_rules
+    from dwpa_tpu_torch.rules.device import encode_rule, expand
+    from dwpa_tpu_torch.utils import bytesops as bo
+
+    rules = parse_rules(RULES_DEVICE)
+    base = [b"devrule%07d" % i for i in range(UNIT_BATCH * RULES_FLUSHES)]
+    psk = rules[-1].apply(base[-1])
+    line = tfx.make_pmkid_line(psk, b"bench-essid", seed="rulesdev")
+    warm = M22000Engine([line], batch_size=UNIT_BATCH, device=dev)
+    warm.crack_rules_blocks(frame_blocks((b"warm%07d" % i for i in range(UNIT_BATCH)), UNIT_BATCH),
+                            [rules[0], rules[-1]])
+
+    # K1 on the rules path's shape: 16-column rows expanded on the card,
+    # against the plain version (2 iterations) and hashlib (4096).
+    eng = M22000Engine([line], batch_size=UNIT_BATCH, device=dev)
+    step = eng._step_for(b"bench-essid")
+    rows = torch.from_numpy(bo.pack_passwords_be(base[:UNIT_BATCH]).view(np.int32)).to(dev)
+    lens = torch.full((UNIT_BATCH,), len(base[0]), dtype=torch.int32, device=dev)
+    pw = expand(rows, lens, encode_rule(rules[-1]))
+    got = pbkdf2_cuda.pbkdf2_sha1_pmk_cuda(pw, step.salt1, step.salt2, iterations=2)
+    ref = pbkdf2.pbkdf2_sha1_pmk(pw, step.salt1, step.salt2, iterations=2)
+    err = int((got.long() - ref.long()).abs().max())
+    check(torch.equal(got, ref), "K1 != plain on the expanded 16-column batch")
+    pmk = step.compute_pmk(pw)[:, :64].cpu().numpy().astype(np.int32).view(np.uint32)
+    for i in range(64):
+        want = hashlib.pbkdf2_hmac("sha1", rules[-1].apply(base[i]), b"bench-essid", 4096, 32)
+        check(bo.words_to_bytes_be(pmk[:, i]) == want, f"K1 != hashlib on expanded row {i}")
+
+    torch.cuda.synchronize()
+    pbkdf2_cuda.LAUNCHES = 0
+    pbkdf2.CALLS = 0
+    t0 = time.perf_counter()
+    founds = eng.crack_rules_blocks(frame_blocks(iter(base), UNIT_BATCH), rules)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    check(len(founds) == 1 and founds[0].psk == psk, f"rules_device missed the PSK: {founds}")
+    check(launches == len(rules) * RULES_FLUSHES, f"K1 launched {launches} times")
+    check(plain_calls == 0, f"the rules engine ran the plain PBKDF2 {plain_calls} times")
+    n = len(base) * len(rules)
+    per_rule_ms = wall / (len(rules) * RULES_FLUSHES) * 1e3
+    print(f"phase 7b rules engine: {n} candidates ({len(rules)} rules x {len(base)} base words, "
+          f"batch {UNIT_BATCH}) in {wall:.3f} s = {n / wall:.1f} candidates/s; PSK found; K1 "
+          f"launches {launches}, plain PBKDF2 calls {plain_calls}; stage host seconds "
+          f"{eng.stage_times}; {per_rule_ms:.3f} ms per rule batch, expand {expand_ms:.3f} ms "
+          f"= {expand_ms / per_rule_ms:.2%} of it; K1 vs plain on the expanded [{UNIT_BATCH}, 16] "
+          f"batch exact at 2 iterations, vs hashlib on 64 rows at 4096 [{card}]", flush=True)
+    return launches, err
+
+
+def rules_unit(rng):
+    """Phase 7c's unit: phase 6's five nets, each with its own PSK made by
+    a different rule of the first 16 of wpa.rule from a base word planted
+    in the dict's second block.  Returns the lines (each with its NC delta
+    and endian), their PSKs, the dict's words, the rules text and the
+    pass-1 ``cracked.txt.gz`` words (none of them a PSK)."""
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.rules import wpa_rules
+
+    rules = wpa_rules()[:RULES_UNIT_RULES]
+    picks = [1, 5, 7, 10, 15]          # 'c', 'C', '$1', '$?', '$9'
+    bases = [b"rules7c-net%d-base" % k for k in range(5)]
+    psks = [rules[r].apply(b) for r, b in zip(picks, bases)]
+    lines = [
+        (tfx.make_eapol_line(psks[0], ESSID, keyver=2, seed="r-k2a"), (0, "")),
+        (tfx.make_pmkid_line(psks[1], ESSID, seed="r-pmk"), (0, "")),
+        (tfx.make_eapol_line(psks[2], ESSID, keyver=2, nc_delta=-2, endian="BE", seed="r-k2b"),
+         (-2, "BE")),
+        (tfx.make_eapol_line(psks[3], ESSID, keyver=1, seed="r-k1"), (0, "")),
+        (tfx.make_eapol_line(psks[4], ESSID, keyver=3, seed="r-k3"), (0, "")),
+    ]
+    words = random_words(rng, RULES_UNIT_WORDS, 8, 20)
+    for k, b in enumerate(bases):
+        words[UNIT_BATCH + (k + 1) * UNIT_BATCH // 6] = b
+    cracked = random_words(rng, RULES_CRACKED_WORDS, 8, 20)
+    return lines, psks, words, "\n".join(r.text for r in rules) + "\n", cracked
+
+
+def phase_rules_client(card, rng, unit_pmk_s):
+    """Phase 7c: the volunteer loop on a rules unit (pass-1 rules expanded
+    in process), then a crash after the first pass-2 block (pass-1 rules
+    expanded on a pool of RULE_WORKERS processes) and a fresh client's
+    replay, then the two pass-1 expansions timed alone.  Returns K1's
+    launches in the first run()."""
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+
+    lines, psks, words, rules_text, cracked_words = rules_unit(rng)
+    raw = [ln for ln, _ in lines]
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    dhash = hashlib.md5(blob).hexdigest()
+    cracked = gzip.compress(b"\n".join(cracked_words) + b"\n", compresslevel=1)
+    Server = stub_server(raw, rules_text, cracked)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    phase = "phase 7c"
+
+    def pass1_seconds(client):
+        return sum(r["t1"] - r["t0"] for r in client.tracer.records("pass1"))
+
+    server = Server(blob, dhash)
+    client, reg = make_client(server, CLIENT_DIR / "rules", 1, "rules unit", phase)
+    pbkdf2_cuda.LAUNCHES = 0
+    pbkdf2.CALLS = 0
+    t0 = time.perf_counter()
+    done = client.run()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    check(done == 1, f"run() completed {done} units")
+    res = client.last_result
+    check_founds(res.founds, lines, phase, psks)
+    check(res.accepted and len(server.verdicts) == 1 and len(server.verdicts[0]) == len(lines)
+          and all(ok for _, ok in server.verdicts[0]),
+          f"rules unit not accepted with every PSK verified: {server.verdicts}")
+    check(launches > 0 and plain_calls == 0,
+          f"K1 launches {launches}, plain PBKDF2 calls {plain_calls}")
+    files = [str(Path(client.dictdir) / "cracked.txt.gz")]
+    check(Path(files[0]).exists(), "the client did not fetch cracked.txt.gz")
+    rules = client._rules({"rules": base64.b64encode(rules_text.encode()).decode()})
+    pass1 = len(list(client._pass1_candidates({"hashes": raw}, rules, files)))
+    pass1_cracked = len(list(client._stream_cracked(files, rules)))
+    check(pass1_cracked == RULES_CRACKED_WORDS * RULES_UNIT_RULES,
+          f"pass 1 expanded cracked.txt.gz into {pass1_cracked} candidates")
+    pass2 = RULES_UNIT_WORDS * RULES_UNIT_RULES
+    check(res.candidates_tried == pass1 + pass2,
+          f"tried {res.candidates_tried}, expected {pass1} + {pass2}")
+    p1_serial = (reg.value("dwpa_client_pmk_per_s", **{"pass": "1"}), pass1_seconds(client))
+    dev_pairs = reg.value("dwpa_rules_device_expanded_total")
+    fallback = {r: reg.value("dwpa_rules_host_fallback_total", reason=r) or 0
+                for r in ("purge", "overflow")}
+    spans = [r["t1"] - r["t0"] for r in client.tracer.records() if r["name"] == "rules:expand"]
+    print(f"{phase} run: 1 rules unit accepted, {len(res.founds)}/5 nets verified by the stub "
+          f"server ({RULES_UNIT_RULES} rules, {RULES_UNIT_WORDS} base words, pass 1 {pass1} "
+          f"candidates of which {pass1_cracked} from cracked.txt.gz); run() {wall:.3f} s "
+          f"with challenge and prewarm; K1 launches {launches}, plain PBKDF2 calls {plain_calls}; "
+          f"dwpa_rules_device_expanded_total {dev_pairs}, dwpa_rules_host_fallback_total "
+          f"{fallback}; rules:expand spans {len(spans)}, {sum(spans):.3f} s in all [{card}]",
+          flush=True)
+    report_unit(client, reg, "rules unit", unit_pmk_s, card, phase)
+
+    server = Server(blob, dhash)
+    crashed, creg = make_client(server, CLIENT_DIR / "rules-crash", 1, "crashing", phase,
+                                rule_workers=RULE_WORKERS)
+    in_pass2, checkpoints = [], []
+    real_fetch, real_write = crashed._fetch_pass2_paths, crashed._write_resume
+
+    def fetch_pass2(work):
+        in_pass2.append(True)
+        return real_fetch(work)
+
+    def write_then_crash(work):
+        real_write(work)
+        if in_pass2 and "_progress" in work:
+            checkpoints.append(work["_progress"]["done"])
+            raise Crash
+
+    crashed._fetch_pass2_paths, crashed._write_resume = fetch_pass2, write_then_crash
+    try:
+        crashed.run()
+        check(False, "the crashing client finished its unit")
+    except Crash:
+        pass
+    p1_pooled = (creg.value("dwpa_client_pmk_per_s", **{"pass": "1"}), pass1_seconds(crashed))
+    checkpointed = json.loads(Path(crashed.resume_path).read_text())["_progress"]["done"]
+    check(checkpointed == checkpoints[-1] == pass1 + UNIT_BATCH * RULES_UNIT_RULES,
+          f"checkpoint {checkpointed} after pass-2 checkpoints {checkpoints} (pass 1: {pass1})")
+    revived, reg = make_client(server, CLIENT_DIR / "rules-crash", 1, "revived", phase)
+    check(revived.run() == 1, "the revived client did not complete the rules unit")
+    skipped = int(reg.value("dwpa_client_resume_skipped_total") or 0)
+    check(skipped == checkpointed, f"resume skipped {skipped}, checkpointed {checkpointed}")
+    check_founds(revived.last_result.founds, lines, f"{phase} resume", psks)
+    check(revived.last_result.accepted and server.issued == 1
+          and all(ok for _, ok in server.verdicts[-1]), "the replayed rules unit was not accepted")
+    print(f"{phase} crash and resume: crashed after the first pass-2 block's checkpoint "
+          f"{checkpoints}; the fresh client skipped {skipped} candidates, tried "
+          f"{revived.last_result.candidates_tried}, found {len(revived.last_result.founds)}/5 and "
+          f"was accepted [{card}]", flush=True)
+
+    # The pass-1 host expansion alone, no device work: the same stream in
+    # process and on the pool (warm from the crashing run).
+    drain = {}
+    for n in (0, RULE_WORKERS):
+        crashed.cfg.rule_workers = n
+        t0 = time.perf_counter()
+        got = sum(1 for _ in crashed._stream_cracked(files, rules))
+        drain[n] = time.perf_counter() - t0
+        check(got == pass1_cracked, f"rule_workers {n} expanded {got} candidates")
+    print(f"{phase} pass-1 rules on the host: {pass1_cracked} candidates from "
+          f"{RULES_CRACKED_WORDS} cracked words; in run() pass 1 ({pass1} candidates) "
+          f"rule_workers 0 {p1_serial[0]:.1f} PMK/s in {p1_serial[1]:.3f} s, rule_workers "
+          f"{RULE_WORKERS} {p1_pooled[0]:.1f} PMK/s in {p1_pooled[1]:.3f} s (pool start-up "
+          f"included); expansion alone rule_workers 0 {drain[0]:.3f} s = "
+          f"{pass1_cracked / drain[0]:.1f} candidates/s, rule_workers {RULE_WORKERS} "
+          f"{drain[RULE_WORKERS]:.3f} s = {pass1_cracked / drain[RULE_WORKERS]:.1f} "
+          f"candidates/s [{card}]", flush=True)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    return launches
 
 
 def main():
@@ -556,7 +855,11 @@ def main():
     check(torch.equal(pmk_kernel, pmk_plain), "kernel != plain on the main-path batch")
 
     res, probe_launches, probe_err, probe_plain_ms = phase_probe(dev, rng, card)
-    phase_client(card, words, unit_pmk_s)
+    client_launches = phase_client(card, words, unit_pmk_s)
+    expand_ms = phase_expand(dev, rng, card)
+    rules_launches, rules_err = phase_rules_engine(dev, rng, card, expand_ms)
+    err = max(err, rules_err)
+    rules_client_launches = phase_rules_client(card, rng, unit_pmk_s)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -585,7 +888,7 @@ def main():
     print(f"K2 bound: {n_full} threads x ({probe_loop} x {sm_probe.ITERS} + {probe_other}) SASS "
           f"instructions at the issue rate = {k2_bound_ms:.3f} ms; one launch "
           f"{sha1['seconds_1x'] * 1e3:.3f} ms [{card}]", flush=True)
-    print(f"chip_smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    print(f"chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
@@ -594,6 +897,9 @@ def main():
         "bound_by": "operations", "library_ms": None,
         "bound_model": "issue_rate" if issue_ms <= probe_ms else "probe_rate",
         "issue_bound_ms": issue_ms, "probe_bound_ms": probe_ms,
+        "launches_by_path": {"unit (phase 4)": launches, "client (phase 6)": client_launches,
+                             "rules engine (phase 7b)": rules_launches,
+                             "rules client (phase 7c)": rules_client_launches},
     }, {
         "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,

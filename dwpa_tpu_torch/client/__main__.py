@@ -16,8 +16,6 @@ from .main import ClientConfig, TpuCrackClient
 
 #: flag dest -> (flag, what is missing)
 DEFERRED = {
-    "rule_workers": ("--rule-workers", "host rule expansion and on-device "
-                     "rules (ROADMAP later slice 3)"),
     "pmk_cache_dir": ("--pmk-cache-dir", "the PMK store (ROADMAP later slice 4)"),
     "pmk_cache_max_bytes": ("--pmk-cache-max-bytes",
                             "the PMK store (ROADMAP later slice 4)"),
@@ -60,6 +58,11 @@ def build_parser():
                    help="candidate-feed producer threads running the host "
                         "stages off the crack loop (default 1; 0 = inline "
                         "feed, no threads)")
+    p.add_argument("--rule-workers", type=int, default=0,
+                   help="processes expanding pass-1 rules (cracked/rkg "
+                        "dicts) on the host; pass-2 rules expand on the "
+                        "device (0/1 = in-process; ignored with a warning "
+                        "on hosts with fewer than N+1 cores)")
     p.add_argument("--device-streams", choices=("auto", "on", "off"),
                    default="auto",
                    help="'on' (independent per-device streams) is not "
@@ -120,6 +123,7 @@ def main(argv=None):
         retry_cap=args.retry_cap,
         outbox_dir=args.outbox_dir,
         prefetch_units=args.prefetch_units,
+        rule_workers=args.rule_workers,
         device=args.device,
     )
     TpuCrackClient(cfg).run()

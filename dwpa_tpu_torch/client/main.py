@@ -8,8 +8,10 @@ Equivalent of the reference client's fetch->crack->submit loop
   then prewarm the work-sized steps through the candidate feed;
 - work loop: get_work -> resume snapshot -> dict download (md5-checked,
   cached by dhash) -> two-pass crack (pass 1: targeted candidates from the
-  hash material + dynamic PR dict + cracked/rkg dicts; pass 2: the
-  server dicts) -> put_work;
+  hash material + dynamic PR dict + cracked/rkg dicts expanded through the
+  unit's hashcat rules on the host; pass 2: the server dicts, expanded
+  through those rules on the device when the unit carries any) ->
+  put_work;
 - dictcount autotune +/-1 against the 900 s work-unit pacing target,
   clamped 1..15 (help_crack.py:947-952, get_work.php:41-46);
 - resume file: a JSON snapshot of the work unit written before cracking
@@ -21,17 +23,19 @@ Equivalent of the reference client's fetch->crack->submit loop
 Both passes consume framed blocks from ``CandidateFeed``: producer
 threads stream, decode and pack candidates (pure host work, no CUDA
 call), and ``M22000Engine.crack_blocks`` stages each block's rows on a
-CUDA side stream.
+CUDA side stream.  A rules pass 2 feeds base-word blocks
+(``RulesFeedSource``) to ``M22000Engine.crack_rules_blocks``, which
+uploads each block once and mangles it on the device by every rule.
 
 Single process, single device.  What the port does not do yet is refused
-loudly, never approximated: a unit carrying hashcat ``rules`` (on-device
-rules, ROADMAP later slice 3) or ``masks`` (on-device mask generation,
-slice 7) raises ``UnsupportedUnit`` and ``run`` abandons it (the
-server's lease reap reassigns it); a PMK cache (slice 4), unit fusion
-(slice 5), forced device streams (slice 6) and a dict cache raise at
-construction.
+loudly, never approximated: a unit carrying ``masks`` (on-device mask
+generation, ROADMAP later slice 7) raises ``UnsupportedUnit`` and ``run``
+abandons it (the server's lease reap reassigns it); a PMK cache
+(slice 4), unit fusion (slice 5), forced device streams (slice 6) and a
+dict cache raise at construction.
 """
 
+import base64
 import itertools
 import json
 import os
@@ -40,13 +44,14 @@ import time
 from dataclasses import dataclass
 
 from .. import __version__
-from ..feed import CandidateFeed
+from ..feed import CandidateFeed, RulesFeedSource
 from ..gen import DictStream, psk_candidates
 from ..models import hashline as hl
 from ..models.m22000 import M22000Engine
 from ..obs import SpanTracer, default_registry, get_logger, setup_logging
 from ..oracle import m22000 as oracle
 from ..parallel.device import resolve_device
+from ..rules import apply_rules, parse_rules
 from ..utils.fsio import fsync_replace
 from .. import testing as synth
 from .challenge import CHALLENGE_PSK, challenge
@@ -123,6 +128,9 @@ class ClientConfig:
                                     # leased ahead while the transport is
                                     # healthy, cracked while it is OPEN
     device: str = None              # torch device; None = cuda:0
+    rule_workers: int = 0           # >1: expand PASS-1 rules (cracked/rkg
+                                    # dicts) on a process pool; pass 2
+                                    # expands on the device
 
 
 @dataclass
@@ -433,12 +441,13 @@ class TpuCrackClient:
         self._cracked_countdown -= 1
         return [p for p in (cracked, rkg) if os.path.exists(p)]
 
-    def _stream_cracked(self, files: list):
-        """Stream the prefetched cracked/rkg files — pure host work, safe
-        on a feed producer thread.  (The JAX client also runs them through
-        the unit's rules; a unit with rules is refused here.)"""
+    def _stream_cracked(self, files: list, rules):
+        """Stream the prefetched cracked/rkg files through the work
+        rules — pure host work, safe on a feed producer thread."""
         for path in files:
-            yield from DictStream(path)
+            stream = DictStream(path)
+            yield from (apply_rules(rules, stream, workers=self.cfg.rule_workers)
+                        if rules else stream)
 
     def _snapshot_prdict(self, work: dict):
         """Snapshot the dynamic PR dict into the work/resume state.
@@ -463,12 +472,20 @@ class TpuCrackClient:
         work["_prdict_cache"] = [w.hex() for w in words]
         self._write_resume(work)
 
+    def _rules(self, work: dict):
+        """The unit's hashcat rules (base64 rule text), parsed; bad lines
+        are skipped, as hashcat does."""
+        blob = work.get("rules")
+        if not blob:
+            return []
+        try:
+            text = base64.b64decode(blob).decode("utf-8", "replace")
+        except ValueError:
+            return []
+        return parse_rules(text.splitlines())
+
     def _check_supported(self, work: dict):
         """Refuse a unit the port cannot crack in full, before any work."""
-        if work.get("rules"):
-            raise UnsupportedUnit(
-                "work unit carries hashcat rules; on-device rules are not "
-                "ported yet (ROADMAP later slice 3)")
         if work.get("masks"):
             raise UnsupportedUnit(
                 "work unit carries mask shards; on-device mask generation "
@@ -533,14 +550,15 @@ class TpuCrackClient:
 
     # -- the loop ----------------------------------------------------------
 
-    def _pass1_candidates(self, work: dict, cracked_files: list):
+    def _pass1_candidates(self, work: dict, rules, cracked_files: list):
         """Pass-1 deterministic host-side stream: targeted generators,
-        then cracked/rkg (highest-yield first, help_crack.py:615-687).
+        then cracked/rkg through the work rules (highest-yield first,
+        help_crack.py:615-687).
         Pure host work — runs on the feed's producer threads; every
         server call was hoisted (``_snapshot_prdict`` /
         ``_prefetch_cracked``)."""
         yield from self._targeted_candidates(None, work)
-        yield from self._stream_cracked(cracked_files)
+        yield from self._stream_cracked(cracked_files, rules)
 
     def _fetch_pass2_paths(self, work: dict) -> list:
         """Fetch the pass-2 server dicts; returns local paths.
@@ -608,11 +626,17 @@ class TpuCrackClient:
         # the feed's producer-side skip; whatever the window doesn't
         # cover carries into pass 2.
         #
+        # Pass-2 rules run ON DEVICE (crack_rules_blocks: one base-word
+        # upload mangled by every rule — the hashcat-on-GPU analog of
+        # help_crack.py:773's ``-S -r``), where candidates never exist
+        # host-side; its own skip honors the same count contract.
+        #
         # Both passes consume from the candidate feed (dwpa_tpu_torch/feed):
-        # producer threads run the host stages (streaming, $HEX decode +
-        # packing) behind a bounded block queue, so the device never
-        # idles on host work — every server call and resume write is
-        # hoisted onto this (consumer) thread first.
+        # producer threads run the host stages (streaming, rule expansion,
+        # $HEX decode + packing) behind a bounded block queue, so the
+        # device never idles on host work — every server call and resume
+        # write is hoisted onto this (consumer) thread first.
+        rules = self._rules(work)
         cfg_feed = dict(depth=self.cfg.feed_depth,
                         producers=self._feed_workers(),
                         registry=self.registry)
@@ -622,7 +646,7 @@ class TpuCrackClient:
             if skip:
                 self.log(f"resuming work unit at candidate {skip}")
             feed1 = CandidateFeed(
-                self._pass1_candidates(work, cracked_files),
+                self._pass1_candidates(work, rules, cracked_files),
                 batch_size=self.cfg.batch_size, skip=skip,
                 prepack=engine.host_packer(), name="pass1", **cfg_feed)
             try:
@@ -643,14 +667,33 @@ class TpuCrackClient:
         skip2 = skip - skipped
         with self.tracer.span("pass2") as sp2:
             paths = self._fetch_pass2_paths(work)
-            words = (w for p in paths for w in DictStream(p))
-            feed2 = CandidateFeed(
-                words, batch_size=self.cfg.batch_size, skip=skip2,
-                prepack=engine.host_packer(), name="pass2", **cfg_feed)
-            try:
-                engine.crack_blocks(feed2, on_batch=on_batch)
-            finally:
-                feed2.close()
+            if rules:
+                # The feed serves BASE-WORD blocks, framed per dict, and
+                # the engine uploads each block once and expands it on the
+                # device by every rule; `@`-purge and overflow pairs are
+                # host-interpreted by the engine's seam.  skip2 counts
+                # expanded candidates, the engine's resume domain.
+                src = RulesFeedSource(
+                    [(p, self._dict_key(p)) for p in paths],
+                    batch_size=self.cfg.batch_size, name="pass2")
+                feed2 = CandidateFeed(
+                    None, batch_size=self.cfg.batch_size, frames=src,
+                    prepack=None, name="pass2", **cfg_feed)
+                try:
+                    engine.crack_rules_blocks(
+                        feed2, rules, on_batch=on_batch, skip=skip2,
+                        registry=self.registry, tracer=self.tracer)
+                finally:
+                    feed2.close()
+            else:
+                words = (w for p in paths for w in DictStream(p))
+                feed2 = CandidateFeed(
+                    words, batch_size=self.cfg.batch_size, skip=skip2,
+                    prepack=engine.host_packer(), name="pass2", **cfg_feed)
+                try:
+                    engine.crack_blocks(feed2, on_batch=on_batch)
+                finally:
+                    feed2.close()
         tried = done - skip
         tried2 = tried - tried1
         if tried2 and sp2.seconds > 0:

@@ -17,17 +17,18 @@ Overlaps host candidate production with device compute:
 
 Consumed by ``M22000Engine.crack_blocks`` and wired through the client
 (pass 1, pass 2, prewarm).  The packed-dictionary cache and its feed
-sources (``DictCache``, ``DictFeedSource``, ``RulesFeedSource``) are
-not ported yet.
+source ``DictFeedSource`` are not ported yet; ``RulesFeedSource``, the
+per-dict base-word framing of the rules pass, is ported without its
+cache (the cold path).
 """
 
 from .framing import Block, PackedSlices, RulesPrep, frame_blocks, \
     frame_packed, frame_rules_packed, skip_stream
-from .pipeline import CandidateFeed, FeedError
+from .pipeline import CandidateFeed, FeedError, RulesFeedSource
 from .staging import DeviceStager
 
 __all__ = [
     "Block", "PackedSlices", "RulesPrep", "frame_blocks", "frame_packed",
     "frame_rules_packed", "skip_stream", "CandidateFeed", "FeedError",
-    "DeviceStager",
+    "DeviceStager", "RulesFeedSource",
 ]

@@ -326,3 +326,37 @@ class CandidateFeed:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+class RulesFeedSource:
+    """Framed BASE-WORD block source for the device rule-expansion path
+    (``M22000Engine.crack_rules_blocks``), over a unit's dict files.
+
+    Each dict is framed SEPARATELY by ``frame_blocks`` (offsets stay
+    global and contiguous across dicts), which is what keeps the
+    expansion order — and so every resume count — equal to the JAX
+    client's on a unit with several dicts: framing a chained word stream
+    would put blocks across dict boundaries.  Feed it to
+    ``CandidateFeed(frames=...)``; iteration runs on the feed's producer
+    side.
+
+    ``units``: ``[(path, dhash | None)]`` in stream order.  A resume is
+    the engine's: ``crack_rules_blocks(skip=)`` drops whole blocks of the
+    expanded window without packing them.  This is the cold path only:
+    the packed-dictionary cache is not ported yet.
+    """
+
+    def __init__(self, units, batch_size: int, *, name: str = "pass2"):
+        self.units = list(units)
+        self.batch_size = int(batch_size)
+        self.name = name
+
+    def __iter__(self):
+        from ..gen.dicts import DictStream
+
+        offset = 0
+        for path, _dhash in self.units:
+            for blk in frame_blocks(DictStream(path), self.batch_size,
+                                    base_offset=offset):
+                offset = blk.offset + blk.count
+                yield blk

@@ -15,7 +15,10 @@ Layout of the device work:
   nets, and computes every net and every nonce-correction variant as one
   ``[N, V, B]`` batch of eager torch ops (``parallel/step.py``).
 - All byte wrangling happens on the host in numpy; the device sees only
-  fixed-shape int32 word tensors.
+  fixed-shape int32 word tensors.  A rules attack
+  (``crack_rules_blocks``) uploads each base block once and mangles it on
+  the device by every rule (``rules/device.py``) ahead of PBKDF2 and
+  verify (``parallel/step.py`` ``build_rules_step``).
 """
 
 import struct
@@ -352,6 +355,128 @@ class _PackedWords:
         return bo.words_to_bytes_be(self.words[b])[: int(self.lens[b])]
 
 
+class _RuleWords:
+    """pws view for a device-mangled batch: column ``b`` decodes by
+    applying the host rule to the base word — the executable spec — so
+    hit decode never trusts the device transform."""
+
+    __slots__ = ("base", "rule")
+
+    def __init__(self, base, rule):
+        self.base = base
+        self.rule = rule
+
+    def __getitem__(self, b):
+        out = self.rule.apply(self.base[b])
+        if out is None or not MIN_PSK_LEN <= len(out) <= MAX_PSK_LEN:
+            return None  # rejected/out-of-range: column was zeroed on device
+        return out
+
+
+class _RulesCtx:
+    """Shared per-attack context for the device-expansion seam
+    (``M22000Engine._rules_flush``): the split rule sets, the expanded
+    stream's rule count, and the attack's telemetry."""
+
+    def __init__(self, rules, registry=None, tracer=None):
+        from ..obs.metrics import default_registry
+        from ..obs.spans import SpanTracer, default_tracer
+        from ..rules.device import device_supported, encode_rule
+
+        self.rules = list(rules)
+        self.dev_rules = [(r, encode_rule(r)) for r in self.rules
+                          if device_supported(r)]
+        self.host_rules = [r for r in self.rules
+                           if not device_supported(r)]
+        self.n_rules = len(self.rules)
+        reg = registry if registry is not None else default_registry()
+        if tracer is None:
+            tracer = default_tracer() if registry is None \
+                else SpanTracer(registry)
+        self.tracer = tracer
+        self.m_device = reg.counter(
+            "dwpa_rules_device_expanded_total",
+            "(word, rule) pairs expanded on device by the rules seam")
+        fb = reg.counter(
+            "dwpa_rules_host_fallback_total",
+            "(word, rule) pairs routed to the host rule interpreter, "
+            "by reason (purge = unsupported op, overflow = length/HEX)")
+        self.m_purge = fb.labels(reason="purge")
+        self.m_overflow = fb.labels(reason="overflow")
+
+    def span(self, name: str):
+        return self.tracer.span(name)
+
+
+class _BlockAgg:
+    """Demux per-sub-batch pipeline events back into per-BLOCK reports.
+
+    A rules block expands into several dispatched sub-batches (fused
+    rule chunks + the host-expanded tail); ``_Pipeline`` fires its
+    callback once per sub-batch, in stream order, but block callers
+    (``crack_rules_blocks`` and the client resume checkpoint behind it)
+    need exactly one ``on_batch(consumed, founds)`` per base block.
+    ``begin``/``emit``/``close`` bracket each block's emissions;
+    ``record`` (installed as the pipeline callback) attributes every
+    event to the oldest incompletely-fired block — emission order IS
+    event order because the pipeline is FIFO — and a block fires once
+    closed and fully collected.  A block that emitted nothing (wholly
+    inside the resume prefix, or nothing dispatchable) reports nothing."""
+
+    def __init__(self, on_batch):
+        import collections
+
+        self.on_batch = on_batch
+        self.blocks = collections.deque()
+        self.cur = None
+
+    def begin(self):
+        self.cur = {"emitted": 0, "fired": 0, "got": 0,
+                    "founds": [], "closed": False}
+        self.blocks.append(self.cur)
+
+    def emit(self):
+        self.cur["emitted"] += 1
+
+    def record(self, raw, new):
+        for b in self.blocks:
+            if b["fired"] < b["emitted"]:
+                b["fired"] += 1
+                b["got"] += raw
+                b["founds"].extend(new)
+                break
+        self._fire()
+
+    def close(self):
+        self.cur["closed"] = True
+        self.cur = None
+        self._fire()
+
+    def _fire(self):
+        while self.blocks:
+            b = self.blocks[0]
+            if not b["closed"] or b["fired"] < b["emitted"]:
+                return
+            self.blocks.popleft()
+            if b["emitted"] and self.on_batch is not None:
+                self.on_batch(b["got"], b["founds"])
+
+
+class _ResumeWindow:
+    """The resume window of a rules attack: ``window(consumed)`` takes up
+    to ``consumed`` candidates from the ``left`` still to skip and returns
+    how many the sub-batch must REPORT (0 = wholly inside the completed
+    prefix: don't dispatch)."""
+
+    def __init__(self, skip: int):
+        self.left = int(skip)
+
+    def __call__(self, consumed: int) -> int:
+        take = min(self.left, consumed)
+        self.left -= take
+        return consumed - take
+
+
 class _Pipeline:
     """Dispatch/sync pipeline of the crack path.
 
@@ -419,6 +544,7 @@ class M22000Engine:
         # net on the host in _collect instead of rebuilding the step.
         self._full = {}   # essid -> original list[PreppedNet]
         self._steps = {}  # essid -> CrackStep (parallel.step.build_crack_step)
+        self._rules_steps = {}  # essid -> fused rules step (build_rules_step)
         # Per-stage wall-clock accumulators: host pack + H2D enqueue /
         # device dispatch / gate sync + decode.  For feed-prepacked
         # blocks "prepare" counts only the residual on-thread work (the
@@ -450,6 +576,7 @@ class M22000Engine:
             del self.groups[found.line.essid]
             del self._salts[found.line.essid]
             self._steps.pop(found.line.essid, None)
+            self._rules_steps.pop(found.line.essid, None)
             self._full.pop(found.line.essid, None)
 
     def _step_for(self, essid: bytes):
@@ -462,6 +589,18 @@ class M22000Engine:
             s1, s2 = self._salts[essid]
             step = build_crack_step(list(self._full[essid]), s1, s2, self.device)
             self._steps[essid] = step
+        return step
+
+    def _rules_step_for(self, essid: bytes):
+        """The fused expand + crack step (build_rules_step) for one ESSID
+        group — same full-membership / lifetime contract as _step_for."""
+        from ..parallel.step import build_rules_step
+
+        step = self._rules_steps.get(essid)
+        if step is None:
+            s1, s2 = self._salts[essid]
+            step = build_rules_step(list(self._full[essid]), s1, s2, self.device)
+            self._rules_steps[essid] = step
         return step
 
     def _h2d(self, rows, stager=None):
@@ -620,6 +759,40 @@ class M22000Engine:
                 break  # one PSK per net is enough
         return founds
 
+    def _decode_rules(self, group, bits_dev, pws, nvalid, live) -> list:
+        """Decode a fused rules chunk's bit-packed found-any mask.
+
+        ``bits_dev``: int32[R, ceil(B/32)], bit b of word b>>5 = column b
+        matched SOME net (build_rules_step).  For each set bit the host
+        re-derives which net, the NC delta/endian and the PMK by running
+        the ORACLE on the candidate that the host rule makes of the base
+        word (``_RuleWords``) — finds are rare and the oracle is the
+        executable spec, so this is both cheap and authoritative.
+        """
+        founds = []
+        bits = to_numpy(bits_dev)
+        assert bits.shape[1] * 32 >= nvalid, (bits.shape, nvalid)
+        for r in range(bits.shape[0]):
+            if not bits[r].any():
+                continue  # no hits for this rule
+            hit = np.unpackbits(np.ascontiguousarray(bits[r]).view(np.uint8),
+                                bitorder="little")
+            for b in np.flatnonzero(hit[:nvalid]):
+                psk = pws[r][int(b)]
+                if psk is None:
+                    continue  # zeroed column (reject/overflow)
+                for net in group:
+                    if id(net.line) not in live:
+                        continue
+                    chk = oracle.check_key_m22000(net.line, [psk], nc=self.nc)
+                    if chk is None:
+                        continue  # device false positive for this net
+                    _, delta, endian, pmk = chk
+                    founds.append(Found(line=net.line, psk=psk, nc=delta or 0,
+                                        endian=endian or "", pmk=pmk))
+                    live.discard(id(net.line))
+        return founds
+
     def _collect(self, dispatched) -> list:
         """Sync stage: gate on hits, decode founds, prune cracked nets."""
         t0 = time.perf_counter()
@@ -629,9 +802,13 @@ class M22000Engine:
         # The hits gate: one scalar per group, fetched together, is the
         # only device->host sync on an all-miss batch.
         hits = torch.stack([out[0] for _, out in outs]).tolist() if outs else []
-        for h, (group, (_, found_dev, pmk_dev)) in zip(hits, outs):
+        for h, (group, out) in zip(hits, outs):
             if h == 0:
                 continue
+            if len(out) == 2:  # fused rules chunk: (hits, packed found-any)
+                founds += self._decode_rules(group, out[1], pws, nvalid, live)
+                continue
+            _, found_dev, pmk_dev = out
             found = found_dev.cpu().numpy().copy()  # writable, not the step's
             found[:, :, nvalid:] = False
             cols = np.flatnonzero(found.any(axis=(0, 1)))
@@ -720,5 +897,201 @@ class M22000Engine:
                 pipe.push(self._dispatch(prep), block.count)
             else:
                 pipe.skip(block.count)
+        pipe.drain()
+        return pipe.founds
+
+    def _rules_flush(self, ctx, batch, account, push, skip):
+        """One base-word flush through the device-expansion seam.
+
+        The body of ``crack_rules_blocks``, once per block: split the batch into device-eligible bases vs host-fallback words,
+        plan the fused rule chunks (``simulate_lens`` overflow routing +
+        per-chunk resume accounting), pack and upload the base block ONCE,
+        dispatch every chunk, then host-expand the fallback tail through
+        the normal packed path.  ``push(record, report)`` /
+        ``skip(report)`` receive the dispatched sub-batches in stream
+        order; ``account(consumed)`` owns the caller's resume window.
+        """
+        from ..parallel.step import RULES_CHUNK
+        from ..rules.device import simulate_lens, stack_rules
+
+        rules = ctx.rules
+        dev_rules, host_rules = ctx.dev_rules, ctx.host_rules
+        base_dev = lens_dev = None
+        with ctx.span("rules:expand"):
+            plain, fallback = [], []
+            for w in batch:
+                # Host-fallback words: overlong bases, and anything that
+                # could put "$HEX[...]" syntax in front of the engine's
+                # unhex stage (the host paths unhex AFTER rule
+                # application, so the device must not hash such words
+                # literally).  The substring check also catches bases a
+                # rule could extend into a valid wrapper; synthesizing
+                # "HEX[" itself from unrelated characters via chained
+                # inserts remains a documented, pathological divergence.
+                if len(w) > MAX_PSK_LEN or b"HEX[" in w:
+                    fallback.append((w, None))  # None = every rule
+                else:
+                    plain.append(w)
+            nplain = len(plain)
+            plan = []  # (chunk, expanded pairs, candidates to report)
+            if nplain and self.groups and dev_rules:
+                # Per-chunk accounting and host-overflow routing run
+                # BEFORE any device work: a resume window covering the
+                # whole batch must not pay the H2D upload, and the
+                # overflow pairs belong to the host tail regardless.
+                # ``expanded`` excludes the overflow pairs deferred to the
+                # host tail — each candidate is counted exactly once, or
+                # skip-by-count resume would overshoot.
+                lens_np = np.asarray([len(w) for w in plain], np.int32)
+                for c0 in range(0, len(dev_rules), RULES_CHUNK):
+                    chunk = dev_rules[c0:c0 + RULES_CHUNK]
+                    overflow = 0
+                    for rule, _steps in chunk:
+                        _, hostneed = simulate_lens(rule, lens_np)
+                        if hostneed.any():
+                            pairs = [(plain[i], rule)
+                                     for i in np.flatnonzero(hostneed)]
+                            fallback.extend(pairs)
+                            overflow += len(pairs)
+                    expanded = nplain * len(chunk) - overflow
+                    plan.append((chunk, expanded, account(expanded)))
+            if any(rep for _, _, rep in plan):
+                t0 = time.perf_counter()
+                # Pad to the engine batch size like _prepare, so every
+                # base block has one shape.
+                cap = max(self.batch_size, nplain)
+                packed = pack_candidates_fast(plain, 0, MAX_PSK_LEN, cap)
+                if packed is None:  # no native lib: plain Python pack
+                    rows = np.zeros((cap, 16), np.uint32)
+                    rows[:nplain] = bo.pack_passwords_be(plain)
+                else:
+                    rows, _, n = packed  # lens_np above is the source
+                    assert n == nplain  # min_len=0: no compaction
+                lens_pad = np.zeros(cap, np.int32)
+                lens_pad[:nplain] = lens_np
+                base_dev, lens_dev = self._h2d(rows), self._h2d(lens_pad)
+                self.stage_times["prepare"] += time.perf_counter() - t0
+        if base_dev is not None:
+            # Chunked fused dispatch: each chunk runs expand + PBKDF2 +
+            # verify per rule, per group, with ONE hits gate.  Nothing is
+            # compiled per shape, so a short last chunk is stacked at its
+            # own length instead of being padded with noop rules.
+            for chunk, expanded, report in plan:
+                if not self.groups:
+                    break
+                if report == 0:
+                    continue  # chunk wholly inside the resume prefix
+                stack = stack_rules([s for _, s in chunk], len(chunk))
+                pws = [_RuleWords(plain, r) for r, _ in chunk]
+                t0 = time.perf_counter()
+                outs = [(self._full[essid],
+                         self._rules_step_for(essid)(base_dev, lens_dev, stack))
+                        for essid in list(self.groups)]
+                self.stage_times["dispatch"] += time.perf_counter() - t0
+                ctx.m_device.inc(expanded)
+                push((pws, nplain, outs), report)
+        # Host-expanded tail: unsupported rules over plain words, plus the
+        # per-(word, rule) fallbacks collected above.  ``consumed`` counts
+        # attempted (word, rule) pairs — rejects included, mirroring how
+        # the device chunks count them.
+        out = []
+        pairs_pending = 0
+
+        def submit_host(cands, consumed):
+            report = account(consumed)
+            if report == 0:
+                return  # batch wholly inside the resume prefix
+            prep = self._prepare(cands)
+            if prep is not None and self.groups:
+                push(self._dispatch(prep), report)
+            else:
+                skip(report)
+
+        def tail(w, rr):
+            nonlocal out, pairs_pending
+            pairs_pending += 1
+            o = rr.apply(w)
+            if o is not None:
+                out.append(o)
+                if len(out) >= self.batch_size:
+                    submit_host(out, pairs_pending)
+                    out, pairs_pending = [], 0
+
+        for w, r in fallback:
+            ctx.m_overflow.inc(len(rules) if r is None else 1)
+            for rr in (rules if r is None else [r]):
+                tail(w, rr)
+        if host_rules and nplain:
+            ctx.m_purge.inc(nplain * len(host_rules))
+            for w in plain:
+                for rr in host_rules:
+                    tail(w, rr)
+        if out or pairs_pending:
+            submit_host(out, pairs_pending)
+
+    def crack_rules_blocks(self, blocks, rules, on_batch=None,
+                           skip: int = 0, *, registry=None,
+                           tracer=None) -> list:
+        """Rules attack with ON-DEVICE mangling (``rules/device.py``) over
+        a framed base-word block stream (``feed.framing.frame_blocks``).
+
+        The host uploads each base block ONCE (packed + lengths) and
+        every device-eligible rule mangles it on the device — candidate
+        H2D drops by the rule count, as hashcat's GPU rule engine does.
+        Per block, through the ``_rules_flush`` seam:
+
+        - words a rule can't cover on device ($HEX/overlong bases, the
+          rare length-overflow (word, rule) pairs flagged by
+          ``simulate_lens``, rules with unsupported ops) are expanded by
+          the host interpreter and fed through the normal packed path —
+          same pipeline, same stream;
+        - hit columns decode by applying the HOST rule to the base word
+          (``_RuleWords``) and re-checking with the oracle, so the device
+          transform is never trusted for results.
+
+        Stream order is fixed (block major, then device rule chunks in
+        order, then the block's host-expanded tail), and equals the JAX
+        engine's ``crack_rules`` over the same words when blocks are
+        framed at ``batch_size`` words.  ``on_batch(consumed, founds)``
+        fires once per BLOCK in stream order, where ``consumed`` counts
+        EXPANDED (word x rule) candidates — the resume domain.
+
+        ``skip`` counts expanded candidates.  A block wholly inside the
+        resume window is dropped in O(1) — its coverage is exactly
+        ``count x len(rules)`` because the seam counts every (word, rule)
+        pair exactly once (device chunks + host tail, rejects included) —
+        without packing or device work; the straddling block replays
+        at-least-once and reports only its remainder.
+        """
+        ctx = _RulesCtx(rules, registry=registry, tracer=tracer)
+        agg = _BlockAgg(on_batch)
+        pipe = _Pipeline(self, agg.record)
+        account = _ResumeWindow(skip)
+
+        def push(rec, report):
+            agg.emit()
+            pipe.push(rec, report)
+
+        def skipf(report):
+            agg.emit()
+            pipe.skip(report)
+
+        for block in blocks:
+            if not self.groups and not pipe.active:
+                break
+            exp = block.count * ctx.n_rules
+            if account.left >= exp:
+                # O(1) whole-block drop: the expanded-count invariant
+                # makes the block's total coverage count x n_rules
+                # without splitting, packing or expanding it.
+                account.left -= exp
+                continue
+            if hasattr(getattr(block, "prep", None), "rules_base"):
+                raise NotImplementedError(
+                    "pre-split rules base blocks come from the dict cache, "
+                    "which is not ported yet (ROADMAP later slice 11)")
+            agg.begin()
+            self._rules_flush(ctx, block.words, account, push, skipf)
+            agg.close()
         pipe.drain()
         return pipe.founds

@@ -165,6 +165,72 @@ class CrackStep:
         return self.verify(self.compute_pmk(pw_words))
 
 
+#: Rules per fused rules dispatch (build_rules_step).  The engine plans,
+#: accounts for and reports a base block's device rules chunk by chunk,
+#: so the chunk size fixes the ``on_batch`` sequence and the resume
+#: offsets; it equals the JAX package's so both streams count alike.
+RULES_CHUNK = 8
+
+
+def _pack_bits(any_b):
+    """bool[B] -> int32[ceil(B/32)] with bit b of word b>>5 = column b (the
+    uint32 words of the JAX step, carried as int32)."""
+    pad = (-any_b.shape[0]) % 32
+    if pad:
+        any_b = torch.cat([any_b, any_b.new_zeros(pad)])
+    weights = torch.ones(32, dtype=torch.int64, device=any_b.device) << torch.arange(
+        32, dtype=torch.int64, device=any_b.device)
+    words = (any_b.reshape(-1, 32).to(torch.int64) * weights).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def build_rules_step(nets, salt1, salt2, device):
+    """The fused rules crack step for one ESSID group on ``device``.
+
+    Returns ``step(base int32[B, 16], lens int32[B], steps int32[R, S, 3])
+    -> (hits, bits)``: each of the R rules mangles the uploaded base batch
+    on the device (``rules.device``), feeds PBKDF2 (``m._pmk_impl``: K1 on
+    a CUDA batch) and every net's verify, and one int32 scalar ``hits``
+    counts the chunk's matches — the host's only sync on an all-miss
+    chunk.  ``bits`` int32[R, ceil(B/32)] is the bit-packed any-net
+    match mask of each rule (bit b of word b>>5 = column b); the engine
+    re-derives the net, NC delta and PMK of the rare hit columns with the
+    host oracle.  ``steps`` is host data: the rule programs drive a Python
+    loop of torch ops, so nothing is built per rule or per ESSID.
+    """
+    from ..rules.device import expand_bytes, repack, unpack
+
+    parts = []
+    for sig, idxs in _partition(nets).items():
+        kind, static = sig[0], sig[1]
+        _, fields, match = _KINDS[kind]
+        group = [nets[i] for i in idxs]
+        mask = torch.zeros(_bucket(len(group)), dtype=torch.bool, device=device)
+        mask[: len(group)] = True
+        consts = tuple(_pad_nets([getattr(g, f) for g in group]) for f in fields)
+        parts.append((match, static, mask, consts))
+    s1, s2 = to_torch(salt1, device), to_torch(salt2, device)
+
+    def step(base, lens, steps):
+        steps = np.asarray(steps)
+        words = unpack(base)
+        hits = torch.zeros((), dtype=torch.int32, device=base.device)
+        bits = []
+        for rsteps in steps:
+            b, _, valid = expand_bytes(words, lens, rsteps)
+            pmk = pmk_step(repack(b, valid), s1, s2)
+            any_b = None
+            for match, static, mask, consts in parts:
+                fnd = match(pmk, static, *consts) & mask[:, None, None]
+                hits = hits + fnd.sum(dtype=torch.int32)
+                a = fnd.any(dim=1).any(dim=0)  # [B]
+                any_b = a if any_b is None else any_b | a
+            bits.append(_pack_bits(any_b))
+        return hits, torch.stack(bits)
+
+    return step
+
+
 def build_crack_step(nets, salt1, salt2, device):
     """The crack step for one ESSID group on ``device``.
 

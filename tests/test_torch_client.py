@@ -12,6 +12,7 @@ The CPU cases crack on ``device="cpu"`` with hashlib PMKs
 ``gpu`` case runs the round trip on ``cuda:0`` with the real kernel.
 """
 
+import base64
 import gzip
 import hashlib
 import io
@@ -27,6 +28,8 @@ from dwpa_tpu import testing as jtfx
 from dwpa_tpu.client.main import ClientConfig as JClientConfig
 from dwpa_tpu.client.main import TpuCrackClient as JTpuCrackClient
 from dwpa_tpu.client.protocol import ServerAPI as JServerAPI
+from dwpa_tpu.feed import RulesFeedSource as JRulesFeedSource
+from dwpa_tpu.rules import parse_rules as jparse_rules
 from dwpa_tpu.server import Database, ServerCore, make_wsgi_app
 from dwpa_tpu_torch.client import main as cm
 from dwpa_tpu_torch.client.main import (ClientConfig, TpuCrackClient,
@@ -35,6 +38,7 @@ from dwpa_tpu_torch.client.protocol import ServerAPI
 from dwpa_tpu_torch.models import m22000 as tm
 from dwpa_tpu_torch.obs import MetricsRegistry
 from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+from dwpa_tpu_torch.rules import parse_rules
 
 PSK = b"loopback-psk1"
 ESSID = b"LoopbackNet"
@@ -292,7 +296,7 @@ def test_crash_mid_pass2_and_resume(server, tmp_path):
     _add_dict(server, [b"filler-%06d" % i for i in range(200)] + [PSK])
     crashed = _client(server, tmp_path, batch_size=16)
     work = crashed.api.get_work(1)
-    pass1 = len(list(crashed._pass1_candidates(work, [])))
+    pass1 = len(list(crashed._pass1_candidates(work, [], [])))
     real_write = crashed._write_resume
     pass2_checkpoints = []
 
@@ -456,24 +460,100 @@ def _run_until_idle(client):
         client.run()
 
 
-def test_rules_unit_abandoned_as_unsupported(server, tmp_path):
-    _ingest(server, [jtfx.make_pmkid_line(PSK, ESSID, seed="ru1")])
-    _add_dict(server, [b"base-word-1"], rules=":\nu\n$1")
+RULES_TEXT = ":\nu\nc $1\n@a\n$1 $2"
+RULE_PSK = b"Rulesbase77!1"    # 'rulesbase77!' through 'c $1'
+
+
+def _rules_dicts(server):
+    """Two dicts with per-dict rules: the server merges them into the
+    unit.  The PSK is a base word of the second dict through 'c $1'; a
+    70-byte base and a 63-byte base take the host tail (every rule, and
+    the '$1 $2' overflow)."""
+    _add_dict(server, [b"rfill-a-%04d" % i for i in range(40)] + [b"y" * 70],
+              name="r1.txt.gz", rules=":\nu\nc $1")
+    words = [b"rfill-b-%04d" % i for i in range(60)] + [b"rulesbase77!", b"z" * 63]
+    _add_dict(server, words, name="r2.txt.gz", rules="@a\n$1 $2\nu")
+
+
+def test_rules_unit_cracked_and_accepted(server, tmp_path, monkeypatch):
+    """A unit carrying rules: pass 2 expands every base block on the
+    device by the merged rules (the PSK only exists as a mangled word),
+    the finds are accepted, and every (word, rule) pair of pass 2 lands
+    in exactly one of the rules counters."""
+    _ingest(server, [jtfx.make_pmkid_line(RULE_PSK, ESSID, seed="ru1"),
+                     jtfx.make_eapol_line(RULE_PSK, ESSID, keyver=2, seed="ru2")])
+    _rules_dicts(server)
     reg = MetricsRegistry()
-    client = _client(server, tmp_path, registry=reg)
+    client = _client(server, tmp_path, registry=reg, batch_size=16)
     calls = []
-    real = client.process_work
-    client.process_work = lambda w: (calls.append(dict(w)), real(w))[1]
-    _run_until_idle(client)
-    assert len(calls) == 1 and calls[0].get("rules")  # tried once, no retry
-    assert reg.value("dwpa_client_engine_retries_total") in (None, 0)
-    assert client.cfg.batch_size == 64
-    assert not os.path.exists(client.resume_path)
-    assert server.db.q1("SELECT n_state FROM nets")["n_state"] == 0
-    assert not any("put_work" in u for _, u in client.api.requests)
-    with pytest.raises(UnsupportedUnit, match="slice 3"):
-        client.process_work(calls[0])
-    assert not issubclass(UnsupportedUnit, RuntimeError)
+    real = tm.M22000Engine.crack_rules_blocks
+    monkeypatch.setattr(tm.M22000Engine, "crack_rules_blocks",
+                        lambda self, *a, **k: (calls.append(k.get("skip")),
+                                               real(self, *a, **k))[1])
+    assert client.challenge()
+    work = client.api.get_work(2)
+    rules = client._rules(work)
+    assert [r.text for r in rules] == RULES_TEXT.splitlines()
+    pass1 = len(list(client._pass1_candidates(work, rules, [])))
+    res = client.process_work(work)
+    assert calls == [0]  # pass 2 only: prewarm runs no rules
+    assert res.accepted and sorted(f.psk for f in res.founds) == [RULE_PSK] * 2
+    rows = server.db.q("SELECT n_state, pass FROM nets")
+    assert all(r["n_state"] == 1 and r["pass"] == RULE_PSK for r in rows)
+    dev = reg.value("dwpa_rules_device_expanded_total")
+    purge = reg.value("dwpa_rules_host_fallback_total", reason="purge")
+    over = reg.value("dwpa_rules_host_fallback_total", reason="overflow")
+    # the 70-byte base takes all five rules on the host, the 63-byte base
+    # its '$1 $2' overflow; '@a' is purged on the host for the other 102
+    assert (purge, over) == (102, 5 + 1)
+    assert dev + purge + over == res.candidates_tried - pass1 == 103 * 5
+    assert [r for r in client.tracer.records() if r["name"] == "rules:expand"]
+
+
+def test_rules_unit_resume_counts_like_jax_client(server, tmp_path):
+    """A crash after the 2nd pass-2 block's checkpoint: the checkpoint is
+    pass 1 + the expanded count of the JAX client's first two rules
+    blocks (per-dict framing), and a fresh client skips exactly that,
+    still finds the PSK (in a later block) and is accepted."""
+    _ingest(server, [jtfx.make_pmkid_line(RULE_PSK, ESSID, seed="rr2")])
+    _rules_dicts(server)
+    crashed = _client(server, tmp_path, batch_size=16)
+    work = crashed.api.get_work(2)
+    rules = crashed._rules(work)
+    assert [r.text for r in rules] == [":", "u", "c $1", "@a", "$1 $2"]
+    pass1 = len(list(crashed._pass1_candidates(work, rules, [])))
+    real_write = crashed._write_resume
+    pass2_checkpoints = []
+
+    def write_then_crash(w):
+        real_write(w)
+        done = w.get("_progress", {}).get("done", 0)
+        if done > pass1:
+            pass2_checkpoints.append(done)
+            if len(pass2_checkpoints) == 2:
+                raise Crash
+
+    crashed._write_resume = write_then_crash
+    with pytest.raises(Crash):
+        crashed.process_work(work)
+    # the JAX client's pass-2 blocks over the same downloaded dicts
+    paths = [(crashed._fetch_dicts(work)[i], None) for i in range(2)]
+    jblocks = [b.count for b in JRulesFeedSource(paths, 16)]
+    assert jblocks == [16, 16, 9, 16, 16, 16, 14]
+    n = len(jparse_rules(RULES_TEXT.splitlines()))
+    expect = [pass1 + n * sum(jblocks[:k + 1]) for k in range(2)]
+    assert pass2_checkpoints == expect
+    checkpointed = json.load(open(crashed.resume_path))["_progress"]["done"]
+    assert checkpointed == expect[-1]
+
+    reg = MetricsRegistry()
+    revived = _client(server, tmp_path, batch_size=16, registry=reg, max_work_units=1)
+    revived.api.get_work = lambda *a, **k: pytest.fail("must replay the resume")
+    assert revived.run() == 1
+    assert reg.value("dwpa_client_resume_skipped_total") == checkpointed
+    res = revived.last_result
+    assert res.accepted and [f.psk for f in res.founds] == [RULE_PSK]
+    assert res.candidates_tried == n * sum(jblocks[2:])
 
 
 def test_mask_unit_abandoned_as_unsupported(server, tmp_path):
@@ -512,12 +592,21 @@ def test_pass1_candidates_match_jax_client(server, tmp_path):
         JClientConfig(base_url="http://loopback/", workdir=str(tmp_path / "jwork"),
                       additional_dict=str(extra)),
         api=JLoopbackAPI(make_wsgi_app(server)), log=lambda *a, **k: None)
-    got = list(client._pass1_candidates(work, [str(cracked)]))
+    got = list(client._pass1_candidates(work, [], [str(cracked)]))
     ref = list(jclient._pass1_candidates(work, [], [str(cracked)]))
     assert got == ref
     assert got[-5:] == [b"extra-word-1", b"$HEX[6869]", b"extra-word-2",
                         b"cracked-1", b"cracked-2"]
     assert b"probed-ssid" in got and b"PLDTWIFI00000" in got
+    # with the unit's rules, the cracked/rkg files expand on the host
+    text = ":\nu\n$1 $2\n@c\nsr$"
+    work["rules"] = base64.b64encode(text.encode()).decode()
+    rules, jrules = client._rules(work), jclient._rules(work)
+    assert [r.text for r in rules] == [r.text for r in jrules] == text.splitlines()
+    got = list(client._pass1_candidates(work, rules, [str(cracked)]))
+    assert got == list(jclient._pass1_candidates(work, jrules, [str(cracked)]))
+    assert got[-10:] == [b"cracked-1", b"CRACKED-1", b"cracked-112", b"raked-1", b"c$acked-1",
+                         b"cracked-2", b"CRACKED-2", b"cracked-212", b"raked-2", b"c$acked-2"]
 
 
 def test_unported_features_refused(server, tmp_path):
@@ -536,12 +625,37 @@ def test_client_cli_refuses_deferred_flags():
     assert (a.url, a.device) == ("http://s/", "cuda:0")
     for argv in (["--url", "http://s/", "--pmk-cache-dir", "x"],
                  ["--url", "http://s/", "--multihost"],
-                 ["--url", "http://s/", "--rule-workers", "2"],
                  ["--url", "http://s/", "--device-streams", "on"],
                  []):
         with pytest.raises(SystemExit) as e:
             main(argv)
         assert e.value.code == 2
+
+
+def test_client_cli_rule_workers(server, tmp_path, monkeypatch):
+    """--rule-workers reaches ClientConfig (default 0), and the client
+    hands it to the pass-1 rule expansion."""
+    from dwpa_tpu_torch.client import __main__ as cli
+
+    seen = []
+
+    class Recorder:
+        def __init__(self, cfg):
+            seen.append(cfg)
+
+        def run(self):
+            return 0
+
+    monkeypatch.setattr(cli, "TpuCrackClient", Recorder)
+    cli.main(["--url", "http://s/", "--rule-workers", "3", "--device", "cpu"])
+    cli.main(["--url", "http://s/", "--device", "cpu"])
+    assert [c.rule_workers for c in seen] == [3, 0]
+    calls = []
+    monkeypatch.setattr(cm, "apply_rules",
+                        lambda rules, stream, workers=0: calls.append(workers) or iter(()))
+    client = _client(server, tmp_path, rule_workers=seen[0].rule_workers)
+    assert list(client._stream_cracked(["unused.gz"], parse_rules([":"]))) == []
+    assert calls == [3]
 
 
 def test_client_defaults_to_the_card(server, tmp_path, monkeypatch):
@@ -565,4 +679,28 @@ def test_gpu_round_trip(server, tmp_path, cuda_device):  # noqa: F811
     res = client.last_result
     assert res.accepted and sorted(f.psk for f in res.founds) == [PSK] * 3
     assert pbkdf2_cuda.LAUNCHES > before[0] and pbkdf2.CALLS == before[1]
+    assert server.db.q1("SELECT COUNT(*) c FROM nets WHERE n_state = 1")["c"] == 3
+
+
+@pytest.mark.gpu
+def test_gpu_rules_round_trip(server, tmp_path, cuda_device):  # noqa: F811
+    """A rules unit on the card: pass 2 expands on cuda:0 and runs K1 on
+    the mangled rows; the finds are accepted."""
+    lines = [jtfx.make_pmkid_line(RULE_PSK, ESSID, seed="gr1"),
+             jtfx.make_eapol_line(RULE_PSK, ESSID, keyver=2, seed="gr2"),
+             jtfx.make_eapol_line(RULE_PSK, ESSID, keyver=3, seed="gr3")]
+    _ingest(server, lines)
+    _add_dict(server, [b"gpu-rfill-%05d" % i for i in range(1500)], name="g1.txt.gz",
+              rules=":\nu")
+    _add_dict(server, [b"gpu-rfill2-%05d" % i for i in range(1500)] + [b"rulesbase77!"],
+              name="g2.txt.gz", rules="c $1\n@a\n$1 $2")
+    reg = MetricsRegistry()
+    client = _client(server, tmp_path, batch_size=1024, device=str(cuda_device),
+                     max_work_units=1, registry=reg, dictcount=2)
+    before = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    assert client.run() == 1
+    res = client.last_result
+    assert res.accepted and sorted(f.psk for f in res.founds) == [RULE_PSK] * 3
+    assert pbkdf2_cuda.LAUNCHES > before[0] and pbkdf2.CALLS == before[1]
+    assert reg.value("dwpa_rules_device_expanded_total") > 0
     assert server.db.q1("SELECT COUNT(*) c FROM nets WHERE n_state = 1")["c"] == 3

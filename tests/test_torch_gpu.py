@@ -1,5 +1,5 @@
-"""The port on a CUDA device: the PBKDF2 kernel, the engine and the SM
-probe kernel.
+"""The port on a CUDA device: the PBKDF2 kernel, the engine, the SM
+probe kernel and the rule interpreter.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -126,3 +126,22 @@ def test_crack_blocks_on_the_card(cuda_device):  # noqa: F811
     assert len(founds) == 5 and {f.psk for f in founds} == {SLICE_PSK}
     assert reports == [(1024, 0), (1024, 0), (953, 5)]
     assert pbkdf2_cuda.LAUNCHES > before[0] and pbkdf2.CALLS == before[1]
+
+
+@pytest.mark.gpu
+def test_expand_on_the_card_matches_cpu(cuda_device):  # noqa: F811
+    """Every rule of the bundled ruleset expands 4096 seeded words (bytes
+    >= 128 included) on the card exactly as on the CPU."""
+    from dwpa_tpu_torch.rules import wpa_rules
+    from dwpa_tpu_torch.rules.device import encode_rule, expand_batch
+
+    rng = np.random.default_rng(23)
+    words = [bytes(rng.integers(1, 256, int(k), dtype=np.uint8))
+             for k in rng.integers(1, 64, 4096)]
+    packed = torch.from_numpy(bo.pack_passwords_be(words).view(np.int32))
+    lens = torch.tensor([len(w) for w in words], dtype=torch.int32)
+    packed_dev, lens_dev = packed.to(cuda_device), lens.to(cuda_device)
+    for rule in wpa_rules():
+        steps = encode_rule(rule)
+        got = expand_batch(packed_dev, lens_dev, steps)
+        assert got.is_cuda and torch.equal(got.cpu(), expand_batch(packed, lens, steps)), rule
