@@ -44,7 +44,26 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    expands through those rules on the host), accepted, then a crash after
    the first pass-2 block and a fresh client's exact replay; the first
    run expands pass 1 in process and the crashing one on a pool of
-   ``RULE_WORKERS`` processes, and both expansions are also timed alone.
+   ``RULE_WORKERS`` processes, and both expansions are also timed alone;
+8. the mask path: (a) ``device_mask_words`` on the card exactly as on the
+   CPU and as the host words + pack, at 131072 rows, for six masks (the
+   ?d x 8 keyspace end, a start beyond 2**32, bytes 0 and >= 128, 63
+   positions), and its time; (b) ``crack_mask`` on the JAX bench's config
+   #5 (one PMKID net, ?d x 8, 8 x 131072, all miss) through K1 only, with
+   no candidate upload and no native pack, K1 held to the plain version
+   on a generated batch, then five nets with PSKs planted in one slice;
+   (c) ``TpuCrackClient.run()`` on a pure-mask unit (two ?d x 8 shards
+   holding the PSKs of five nets of phase 6's kinds), accepted, then a
+   crash after the first mask checkpoint and a fresh client's replay of
+   exactly ``limit - mask_done`` candidates;
+9. the PMK store: (a) the JAX bench's ``pmkstore`` configuration (one
+   PMKID net, 4 x 131072 words, a warm dictionary sharing 7/8 of the cold
+   one), cold and warm, with K1's launches and rows, hit ratios, the
+   producer's split and the consumer's write-back per batch, and written
+   PMKs held to hashlib; (b) phase 6's unit through ``run()`` with a PMK
+   store, cold then warm (no K1 in the warm pass 2); (c) a poisoned-store
+   control: one net's PSK carries a zero PMK, and both runs miss exactly
+   that net.
 
 It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -60,10 +79,12 @@ import json
 import re
 import shutil
 import statistics
+import struct
 import sys
 import threading
 import time
 import urllib.parse
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -91,6 +112,23 @@ RULES_UNIT_WORDS = 2 * UNIT_BATCH
 RULES_UNIT_RULES = 16                  # the first rules of wpa.rule
 RULES_CRACKED_WORDS = 1 << 16          # pass 1: 16 rules -> 8 full batches
 RULE_WORKERS = 4                       # the pooled pass-1 leg (8-core host)
+MASK_CASES = [                          # 8a: (mask, custom, start)
+    ("?d" * 8, None, 0),
+    ("?d" * 8, None, 99_999_980),       # the keyspace end
+    ("ab?l?d", None, 7),
+    ("?d" * 10, None, 9_999_999_000),   # a start beyond 2**32
+    ("?1?b?1?b?d?d", {"1": b"\x00\x7f\x80\xff"}, 123_456_789),   # bytes 0 and >= 128
+    ("?l?u" * 31 + "?d", None, 10 ** 85 + 12_345),                 # 63 positions
+]
+MASK_BENCH_BATCHES = 8                  # bench.py:93 config #5: ?d x 8, 8 x 131072
+MASK_NET_PSKS = [b"31415926", b"31425926", b"31435926", b"31445926", b"31455926"]
+MASK_SHARDS = [{"mask": "?d" * 8, "custom": {}, "skip": 50_000_000, "limit": 2 * UNIT_BATCH},
+               {"mask": "?d" * 8, "custom": {}, "skip": 70_000_000, "limit": 2 * UNIT_BATCH}]
+MASK_UNIT_PSKS = [b"50100000", b"50200000", b"70000500", b"70150000", b"50250000"]
+STORE_BATCHES = 4                       # bench.py:320 pmkstore: 4 x 131072, overlap 7/8
+STORE_PERIOD = 8
+STORE_SAMPLE = 256                      # written PMKs held to hashlib per pass
+POISON_WORDS = 2 * UNIT_BATCH
 
 
 def check(cond, msg):
@@ -175,19 +213,24 @@ def phase_kernel(dev, rng, card):
     return err
 
 
-def unit_lines():
+def five_kind_lines(psks, tag):
+    """The mixed, permuted kinds of the JAX package's multi-chip dry run,
+    each net with its own PSK, as (line, (NC delta, endian)); the second
+    keyver-2 net only cracks with a nonce correction."""
     from dwpa_tpu_torch import testing as tfx
 
-    # The mixed, permuted kinds of the JAX package's multi-chip dry run;
-    # the second keyver-2 net only cracks with a nonce correction.
     return [
-        (tfx.make_eapol_line(PSK, ESSID, keyver=2, seed="u-k2a"), (0, "")),
-        (tfx.make_pmkid_line(PSK, ESSID, seed="u-pmk"), (0, "")),
-        (tfx.make_eapol_line(PSK, ESSID, keyver=2, nc_delta=-2, endian="BE", seed="u-k2b"),
-         (-2, "BE")),
-        (tfx.make_eapol_line(PSK, ESSID, keyver=1, seed="u-k1"), (0, "")),
-        (tfx.make_eapol_line(PSK, ESSID, keyver=3, seed="u-k3"), (0, "")),
+        (tfx.make_eapol_line(psks[0], ESSID, keyver=2, seed=f"{tag}-k2a"), (0, "")),
+        (tfx.make_pmkid_line(psks[1], ESSID, seed=f"{tag}-pmk"), (0, "")),
+        (tfx.make_eapol_line(psks[2], ESSID, keyver=2, nc_delta=-2, endian="BE",
+                             seed=f"{tag}-k2b"), (-2, "BE")),
+        (tfx.make_eapol_line(psks[3], ESSID, keyver=1, seed=f"{tag}-k1"), (0, "")),
+        (tfx.make_eapol_line(psks[4], ESSID, keyver=3, seed=f"{tag}-k3"), (0, "")),
     ]
+
+
+def unit_lines():
+    return five_kind_lines([PSK] * 5, "u")
 
 
 def phase_unit(dev, rng, card):
@@ -317,7 +360,7 @@ class Crash(Exception):
     """Raised by the crash leg's resume writer: a client killed mid-unit."""
 
 
-def stub_server(lines, rules_text=None, cracked=None):
+def stub_server(lines, rules_text=None, cracked=None, masks=None):
     """The server side of phase 4's work unit, in process.
 
     A ``ServerAPI`` whose transport answers the client's requests as the
@@ -329,7 +372,9 @@ def stub_server(lines, rules_text=None, cracked=None):
     the repo's server attaches a dict's rules; ``cracked`` (gzip bytes) is
     served as the unit's ``cracked.txt.gz``, which the client runs in
     pass 1 (there is no ``rkg.txt.gz``: its download fails, as the client
-    allows).
+    allows).  ``masks`` (``{mask, custom, skip, limit}`` shards, as the
+    repo's server issues them from its keyspace table) makes the unit a
+    pure-mask one: it carries the shards and no dict.
     """
     from dwpa_tpu_torch.client.protocol import ServerAPI
     from dwpa_tpu_torch.models import hashline as hl
@@ -365,6 +410,8 @@ def stub_server(lines, rules_text=None, cracked=None):
                 unit = {"hkey": STUB_HKEY, "epoch": 1,
                         "dicts": [{"dhash": self.dhash, "dpath": STUB_DICT}],
                         "hashes": list(lines)}
+                if masks is not None:
+                    unit["dicts"], unit["masks"] = [], masks
                 if cracked is not None:
                     unit["dicts"].append({"dhash": hashlib.md5(cracked).hexdigest(),
                                           "dpath": STUB_CRACKED})
@@ -407,7 +454,8 @@ def check_founds(founds, lines, what, psks=None):
               f"{what}: wrong find for keyver {f.line.keyver}: {(f.psk, f.nc, f.endian)}")
 
 
-def make_client(server, workdir, feed_workers, label, phase="phase 6", rule_workers=0):
+def make_client(server, workdir, feed_workers, label, phase="phase 6", rule_workers=0,
+                pmk_cache_dir=None):
     """A ``TpuCrackClient`` for the stub server's unit at full batch, with
     its own registry; returns (client, registry)."""
     from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
@@ -416,7 +464,8 @@ def make_client(server, workdir, feed_workers, label, phase="phase 6", rule_work
     reg = MetricsRegistry()
     cfg = ClientConfig(base_url=STUB_URL, workdir=str(workdir), batch_size=UNIT_BATCH,
                        max_work_units=1, feed_workers=feed_workers, device="cuda:0",
-                       rule_workers=rule_workers)
+                       rule_workers=rule_workers,
+                       pmk_cache_dir=None if pmk_cache_dir is None else str(pmk_cache_dir))
     return TpuCrackClient(cfg, api=server, registry=reg,
                           log=lambda msg: print(f"{phase} {label} client: {msg}", flush=True)), reg
 
@@ -660,21 +709,13 @@ def rules_unit(rng):
     in the dict's second block.  Returns the lines (each with its NC delta
     and endian), their PSKs, the dict's words, the rules text and the
     pass-1 ``cracked.txt.gz`` words (none of them a PSK)."""
-    from dwpa_tpu_torch import testing as tfx
     from dwpa_tpu_torch.rules import wpa_rules
 
     rules = wpa_rules()[:RULES_UNIT_RULES]
     picks = [1, 5, 7, 10, 15]          # 'c', 'C', '$1', '$?', '$9'
     bases = [b"rules7c-net%d-base" % k for k in range(5)]
     psks = [rules[r].apply(b) for r, b in zip(picks, bases)]
-    lines = [
-        (tfx.make_eapol_line(psks[0], ESSID, keyver=2, seed="r-k2a"), (0, "")),
-        (tfx.make_pmkid_line(psks[1], ESSID, seed="r-pmk"), (0, "")),
-        (tfx.make_eapol_line(psks[2], ESSID, keyver=2, nc_delta=-2, endian="BE", seed="r-k2b"),
-         (-2, "BE")),
-        (tfx.make_eapol_line(psks[3], ESSID, keyver=1, seed="r-k1"), (0, "")),
-        (tfx.make_eapol_line(psks[4], ESSID, keyver=3, seed="r-k3"), (0, "")),
-    ]
+    lines = five_kind_lines(psks, "r")
     words = random_words(rng, RULES_UNIT_WORDS, 8, 20)
     for k, b in enumerate(bases):
         words[UNIT_BATCH + (k + 1) * UNIT_BATCH // 6] = b
@@ -801,6 +842,434 @@ def phase_rules_client(card, rng, unit_pmk_s):
     return launches
 
 
+def phase_mask_words(dev, card):
+    """Phase 8a: the mask generator on the card against its CPU run and
+    the host words + pack, at 131072 rows; then its time."""
+    import torch
+
+    from dwpa_tpu_torch.gen.mask import device_mask_words, mask_words
+    from dwpa_tpu_torch.ops.common import to_numpy
+    from dwpa_tpu_torch.utils import bytesops as bo
+
+    rows = 0
+    for mask, custom, start in MASK_CASES:
+        got = device_mask_words(mask, start, UNIT_BATCH, custom, device=dev)
+        check(got.is_cuda and torch.equal(got.cpu(), device_mask_words(
+            mask, start, UNIT_BATCH, custom, device="cpu")), f"mask {mask[:16]}@{start}: card != CPU")
+        host = list(mask_words(mask, custom, skip=start, limit=UNIT_BATCH))
+        ref = bo.pack_passwords_be(host)[:, :got.shape[1]]
+        check(np.array_equal(to_numpy(got)[:len(host)], ref),
+              f"mask {mask[:16]}@{start}: card != host words")
+        rows += len(host)
+    times = {mask: cuda_ms(lambda: device_mask_words(mask, 0, UNIT_BATCH, custom, device=dev), 5)
+             for mask, custom, _ in (MASK_CASES[0], MASK_CASES[-1])}
+    print(f"phase 8a mask words: {len(MASK_CASES)} masks x {UNIT_BATCH} rows exact on the card vs "
+          f"CPU, {rows} rows vs the host words and pack; generate {UNIT_BATCH} rows: ?d x 8 "
+          f"{times[MASK_CASES[0][0]]:.3f} ms, 63 positions {times[MASK_CASES[-1][0]]:.3f} ms "
+          f"(median of 5, CUDA events) [{card}]", flush=True)
+
+
+def count_h2d(engine_cls):
+    """Patch ``engine_cls._h2d`` to count its calls; returns (counter,
+    restore)."""
+    calls = [0]
+    real = engine_cls._h2d
+
+    def counting(self, rows, stager=None):
+        calls[0] += 1
+        return real(self, rows, stager)
+
+    engine_cls._h2d = counting
+    return calls, lambda: setattr(engine_cls, "_h2d", real)
+
+
+def phase_mask_engine(dev, card):
+    """Phase 8b: crack_mask on the JAX bench's config #5 (one PMKID net,
+    ?d x 8, 8 x 131072, all miss), then a five-net slice with planted
+    PSKs.  Returns K1's launches on config #5 and its error against the
+    plain version on a generated batch."""
+    import torch
+
+    from dwpa_tpu_torch import native
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.gen.mask import device_mask_words
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.utils import bytesops as bo
+
+    mask = "?d" * 8
+    n = MASK_BENCH_BATCHES * UNIT_BATCH
+    eng = M22000Engine([tfx.make_pmkid_line(b"not-in-keyspace", b"bench-essid", seed="mask5")],
+                       batch_size=UNIT_BATCH, device=dev)
+    eng.crack_mask(mask, skip=n, limit=UNIT_BATCH)   # warm-up, disjoint slice
+    # K1 on the mask path's shape: [131072, 4] generated rows.
+    step = eng._step_for(b"bench-essid")
+    pw = device_mask_words(mask, 0, UNIT_BATCH, device=dev)
+    got = pbkdf2_cuda.pbkdf2_sha1_pmk_cuda(pw, step.salt1, step.salt2, iterations=2)
+    ref = pbkdf2.pbkdf2_sha1_pmk(pw, step.salt1, step.salt2, iterations=2)
+    err = int((got.long() - ref.long()).abs().max())
+    check(torch.equal(got, ref), "K1 != plain on a generated mask batch")
+    pmk = step.compute_pmk(pw)[:, :64].cpu().numpy().astype(np.int32).view(np.uint32)
+    for i in range(64):
+        want = hashlib.pbkdf2_hmac("sha1", b"%08d" % i, b"bench-essid", 4096, 32)
+        check(bo.words_to_bytes_be(pmk[:, i]) == want, f"K1 != hashlib on mask row {i}")
+    eng.stage_times = dict.fromkeys(eng.stage_times, 0.0)
+    h2d, restore = count_h2d(M22000Engine)
+    torch.cuda.synchronize()
+    pbkdf2_cuda.LAUNCHES = 0
+    pbkdf2.CALLS = 0
+    native.CALLS = 0
+    try:
+        t0 = time.perf_counter()
+        founds = eng.crack_mask(mask, skip=0, limit=n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches, plain_calls, native_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS, native.CALLS
+    check(founds == [], f"config #5 found {founds}")
+    check(launches == MASK_BENCH_BATCHES and plain_calls == 0,
+          f"K1 launches {launches}, plain PBKDF2 calls {plain_calls}")
+    check(h2d[0] == 0 and native_calls == 0,
+          f"candidate uploads {h2d[0]}, native pack calls {native_calls}")
+    print(f"phase 8b crack_mask (config #5): {n} candidates ({MASK_BENCH_BATCHES} x {UNIT_BATCH}) "
+          f"in {wall:.3f} s = {n / wall:.1f} candidates/s, {wall / MASK_BENCH_BATCHES * 1e3:.3f} ms "
+          f"per batch; K1 launches {launches}, plain PBKDF2 calls {plain_calls}; candidate H2D "
+          f"calls {h2d[0]}, native pack calls {native_calls}; stage host seconds "
+          f"{eng.stage_times}; K1 vs plain on the generated [{UNIT_BATCH}, {pw.shape[1]}] batch "
+          f"exact at 2 iterations, vs hashlib on 64 rows at 4096 [{card}]", flush=True)
+
+    # five nets, five planted PSKs in one 2-batch slice of the keyspace
+    lines = five_kind_lines(MASK_NET_PSKS, "m")
+    eng = M22000Engine([ln for ln, _ in lines], batch_size=UNIT_BATCH, device=dev)
+    skip = int(MASK_NET_PSKS[0]) - 12_345
+    t0 = time.perf_counter()
+    founds = eng.crack_mask(mask, skip=skip, limit=2 * UNIT_BATCH)
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    check_founds(founds, lines, "phase 8b five nets", MASK_NET_PSKS)
+    missing = M22000Engine([ln for ln, _ in lines], batch_size=UNIT_BATCH, device=dev).crack_mask(
+        mask, skip=skip + 2 * UNIT_BATCH, limit=UNIT_BATCH)
+    check(missing == [], f"a slice past the PSKs found {missing}")
+    print(f"phase 8b five nets: {len(founds)}/5 found in a {2 * UNIT_BATCH}-candidate slice at "
+          f"{skip} ({2 * UNIT_BATCH / wall5:.1f} candidates/s); the next {UNIT_BATCH} found "
+          f"nothing [{card}]", flush=True)
+    return launches, err
+
+
+def phase_mask_client(card):
+    """Phase 8c: TpuCrackClient.run() on a pure-mask unit (two ?d x 8
+    shards, five nets each with a PSK inside them), then a crash after the
+    first mask checkpoint and a fresh client's replay.  Returns K1's
+    launches in the first run()."""
+    from dwpa_tpu_torch import native
+    from dwpa_tpu_torch.feed import CandidateFeed
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+
+    lines = five_kind_lines(MASK_UNIT_PSKS, "mu")
+    raw = [ln for ln, _ in lines]
+    Server = stub_server(raw, masks=MASK_SHARDS)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    phase = "phase 8c"
+    total = sum(s["limit"] for s in MASK_SHARDS)
+
+    # every mask pass (a crack_blocks call on a block generator, not a
+    # feed) is timed and its uploads, native packs and K1 launches counted
+    mask_io = []
+    h2d, restore_h2d = count_h2d(M22000Engine)
+    real_cb = M22000Engine.crack_blocks
+
+    def crack_blocks(self, blocks, on_batch=None):
+        if isinstance(blocks, CandidateFeed):
+            return real_cb(self, blocks, on_batch)
+        before = (h2d[0], native.CALLS, pbkdf2_cuda.LAUNCHES)
+        out = real_cb(self, blocks, on_batch)
+        mask_io.append((h2d[0] - before[0], native.CALLS - before[1],
+                        pbkdf2_cuda.LAUNCHES - before[2]))
+        return out
+
+    M22000Engine.crack_blocks = crack_blocks
+    try:
+        server = Server(None, None)
+        client, reg = make_client(server, CLIENT_DIR / "mask", 1, "mask unit", phase)
+        pbkdf2_cuda.LAUNCHES = 0
+        pbkdf2.CALLS = 0
+        t0 = time.perf_counter()
+        done = client.run()
+        wall = time.perf_counter() - t0
+        launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+        check(done == 1, f"run() completed {done} units")
+        res = client.last_result
+        check_founds(res.founds, lines, phase, MASK_UNIT_PSKS)
+        check(res.accepted and len(server.verdicts) == 1 and len(server.verdicts[0]) == len(lines)
+              and all(ok for _, ok in server.verdicts[0]),
+              f"mask unit not accepted with every PSK verified: {server.verdicts}")
+        check(launches > 0 and plain_calls == 0,
+              f"K1 launches {launches}, plain PBKDF2 calls {plain_calls}")
+        mask_launches = sum(k for _, _, k in mask_io)
+        check(len(mask_io) == len(MASK_SHARDS) and all(io[:2] == (0, 0) for io in mask_io),
+              f"mask passes (uploads, native packs, K1 launches): {mask_io}")
+        pass1 = len(list(client._pass1_candidates({"hashes": raw}, [], [])))
+        check(res.candidates_tried == pass1 + total,
+              f"tried {res.candidates_tried}, expected {pass1} + {total}")
+        pm = reg.value("dwpa_client_pmk_per_s", **{"pass": "mask"})
+        print(f"{phase} run: 1 pure-mask unit ({len(MASK_SHARDS)} shards, {total} candidates) "
+              f"accepted, {len(res.founds)}/5 nets verified by the stub server; run() {wall:.3f} s "
+              f"with challenge and prewarm; unit {res.elapsed:.3f} s; mask pass {pm:.1f} PMK/s; K1 "
+              f"launches {launches} ({mask_launches} in the mask pass), plain PBKDF2 calls "
+              f"{plain_calls}; mask passes (candidate uploads, native packs, K1 launches) "
+              f"{mask_io}; stage host seconds {res.stage_times} [{card}]", flush=True)
+
+        server = Server(None, None)
+        crashed, _ = make_client(server, CLIENT_DIR / "mask-crash", 1, "crashing", phase)
+        checkpoints = []
+        real_write = crashed._write_resume
+
+        def write_then_crash(work):
+            real_write(work)
+            mdone = work.get("_progress", {}).get("mask_done", 0)
+            if mdone:
+                checkpoints.append(mdone)
+                raise Crash
+
+        crashed._write_resume = write_then_crash
+        try:
+            crashed.run()
+            check(False, "the crashing client finished its unit")
+        except Crash:
+            pass
+        progress = json.loads(Path(crashed.resume_path).read_text())["_progress"]
+        check(checkpoints == [UNIT_BATCH] and progress["mask_done"] == UNIT_BATCH,
+              f"mask checkpoints {checkpoints}, resume {progress}")
+        revived, rreg = make_client(server, CLIENT_DIR / "mask-crash", 1, "revived", phase)
+        check(revived.run() == 1, "the revived client did not complete the mask unit")
+        rres = revived.last_result
+        check(rres.candidates_tried == total - progress["mask_done"],
+              f"replayed {rres.candidates_tried}, expected {total} - {progress['mask_done']}")
+        skipped = int(rreg.value("dwpa_client_resume_skipped_total") or 0)
+        check(skipped == progress["done"] + progress["mask_done"], f"resume skipped {skipped}")
+        check(rres.accepted and server.issued == 1 and len(server.verdicts[-1]) == len(lines)
+              and all(ok for _, ok in server.verdicts[-1]), "the replayed mask unit was not accepted")
+        print(f"{phase} crash and resume: crashed after the first mask checkpoint "
+              f"(mask_done {progress['mask_done']}, done {progress['done']}); the fresh client "
+              f"skipped {skipped}, replayed exactly {rres.candidates_tried} = {total} - "
+              f"{progress['mask_done']} candidates, submitted {len(server.verdicts[-1])} PSKs and "
+              f"was accepted [{card}]", flush=True)
+    finally:
+        M22000Engine.crack_blocks = real_cb
+        restore_h2d()
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    return launches
+
+
+def count_rows():
+    """Patch the engine's K1 entry to record each launch's row count;
+    returns (rows list, restore)."""
+    from dwpa_tpu_torch.models import m22000 as m
+
+    rows = []
+    real = m.pbkdf2_sha1_pmk_cuda
+
+    def counting(pw, *args, **kwargs):
+        rows.append(pw.shape[0])
+        return real(pw, *args, **kwargs)
+
+    m.pbkdf2_sha1_pmk_cuda = counting
+    return rows, lambda: setattr(m, "pbkdf2_sha1_pmk_cuda", real)
+
+
+def phase_store_engine(dev, card):
+    """Phase 9a: the JAX bench's pmkstore configuration (one PMKID net,
+    4 x 131072 words, the warm dictionary sharing 7/8 of the cold one):
+    cold and warm PMK/s, K1 launches and rows, hit ratios, the producer's
+    split and the consumer's write-back per batch, and written PMKs held
+    to hashlib.  Returns K1's launches over both passes."""
+    import torch
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.feed import CandidateFeed
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.pmkstore import PMKStore
+
+    essid = b"bench-store"
+    line = tfx.make_pmkid_line(b"not-in-either-dict", essid, seed="pks")
+    n = STORE_BATCHES * UNIT_BATCH
+    dict_a = [b"storeword-%08d" % i for i in range(n)]
+    dict_b = [dict_a[i] if i % STORE_PERIOD else b"freshword-%08d" % i for i in range(n)]
+    root = CLIENT_DIR / "pmkstore-9a"
+    shutil.rmtree(root, ignore_errors=True)
+    reg = MetricsRegistry()
+    store = PMKStore(str(root), registry=reg)
+    writes = []
+    real_put_many = store.put_many
+
+    def timed_put_many(items):
+        t0 = time.perf_counter()
+        real_put_many(items)
+        writes.append(time.perf_counter() - t0)
+
+    store.put_many = timed_put_many
+    M22000Engine([line], batch_size=UNIT_BATCH, device=dev).crack_batch(
+        [b"storewarm-%08d" % i for i in range(UNIT_BATCH)])   # plain-path warm-up
+    launches = 0
+    results = []
+    for label, words in (("cold", dict_a), ("warm", dict_b)):
+        eng = M22000Engine([line], batch_size=UNIT_BATCH, device=dev, pmk_store=store)
+        feed = CandidateFeed(iter(words), batch_size=UNIT_BATCH, depth=2, producers=1,
+                             prepack=eng.host_packer(), registry=MetricsRegistry(),
+                             name=f"pmkstore_{label}")
+        hits0, miss0 = (reg.value(f"dwpa_pmkstore_{k}_total") or 0 for k in ("hits", "misses"))
+        del writes[:]
+        rows, restore = count_rows()
+        torch.cuda.synchronize()
+        pbkdf2_cuda.LAUNCHES = 0
+        pbkdf2.CALLS = 0
+        try:
+            t0 = time.perf_counter()
+            founds = eng.crack_blocks(feed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+            feed.close()
+        check(founds == [], f"pmkstore {label} found {founds}")
+        check(pbkdf2.CALLS == 0, f"pmkstore {label} ran the plain PBKDF2")
+        launches += pbkdf2_cuda.LAUNCHES
+        hits = (reg.value("dwpa_pmkstore_hits_total") or 0) - hits0
+        miss = (reg.value("dwpa_pmkstore_misses_total") or 0) - miss0
+        produce = [r["t1"] - r["t0"] for r in feed.tracer.records("feed:produce")]
+        sample = words[::len(words) // STORE_SAMPLE][:STORE_SAMPLE]
+        check(store.lookup(essid, sample) == [hashlib.pbkdf2_hmac("sha1", w, essid, 4096, 32)
+                                              for w in sample],
+              f"pmkstore {label}: a written PMK differs from hashlib")
+        results.append((label, wall))
+        print(f"phase 9a pmkstore {label}: {n} words in {wall:.3f} s = {n / wall:.1f} PMK/s; K1 "
+              f"launches {pbkdf2_cuda.LAUNCHES} covering rows {rows} ({sum(rows)} in all); hit "
+              f"ratio {hits / max(1, hits + miss):.4f} ({hits} hits, {miss} misses); producer "
+              f"feed:produce per batch {', '.join(f'{x:.3f}' for x in produce)} s; consumer "
+              f"write-back per batch {', '.join(f'{x:.3f}' for x in writes)} s; stage host "
+              f"seconds {eng.stage_times}; {len(sample)} written PMKs equal hashlib [{card}]",
+              flush=True)
+    store.close()
+    shutil.rmtree(root, ignore_errors=True)
+    cold_s, warm_s = results[0][1], results[1][1]
+    print(f"phase 9a pmkstore: warm / cold speed {cold_s / warm_s:.3f}x (bound 1 / (1 - 7/8) "
+          f"= 8x) [{card}]", flush=True)
+    return launches
+
+
+def phase_store_client(card, words, unit_pmk_s):
+    """Phase 9b: phase 6's five-net dict unit through run() with a PMK
+    store, twice: cold (all miss, written back) and warm (all hit, no K1
+    in pass 2).  Returns K1's launches in both runs."""
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+
+    lines = unit_lines()
+    raw = [ln for ln, _ in lines]
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    dhash = hashlib.md5(blob).hexdigest()
+    Server = stub_server(raw)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    phase = "phase 9b"
+    store_dir = CLIENT_DIR / "pmkstore-9b"
+    total = 0
+    for label in ("cold", "warm"):
+        server = Server(blob, dhash)
+        client, reg = make_client(server, CLIENT_DIR / f"store-{label}", 1, label, phase,
+                                  pmk_cache_dir=store_dir)
+        at_pass2 = []
+        real_fetch = client._fetch_pass2_paths
+
+        def fetch_pass2(work):
+            at_pass2.append(pbkdf2_cuda.LAUNCHES)
+            return real_fetch(work)
+
+        client._fetch_pass2_paths = fetch_pass2
+        pbkdf2_cuda.LAUNCHES = 0
+        pbkdf2.CALLS = 0
+        t0 = time.perf_counter()
+        done = client.run()
+        wall = time.perf_counter() - t0
+        launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+        total += launches
+        pass2_launches = launches - at_pass2[0]
+        check(done == 1, f"run() completed {done} units")
+        res = client.last_result
+        check_founds(res.founds, lines, f"{phase} {label}")
+        check(res.accepted and all(ok for _, ok in server.verdicts[-1])
+              and len(server.verdicts[-1]) == len(lines), f"{label} unit not accepted")
+        check(plain_calls == 0, f"{label}: plain PBKDF2 calls {plain_calls}")
+        want = UNIT_WORDS // UNIT_BATCH if label == "cold" else 0
+        check(pass2_launches == want, f"{label}: {pass2_launches} K1 launches in pass 2")
+        hits = reg.value("dwpa_pmkstore_hits_total") or 0
+        miss = reg.value("dwpa_pmkstore_misses_total") or 0
+        writes = reg.value("dwpa_pmkstore_writes_total") or 0
+        client.pmk_store.close()
+        print(f"{phase} {label}: accepted with {len(res.founds)}/5; K1 launches {launches} "
+              f"({pass2_launches} in pass 2), plain PBKDF2 calls {plain_calls}; store hits "
+              f"{hits}, misses {miss}, writes {writes}; run() {wall:.3f} s [{card}]", flush=True)
+        report_unit(client, reg, label, unit_pmk_s, card, phase)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    return total
+
+
+def phase_store_poison(dev, rng, card):
+    """Phase 9c: the poisoned-cache control.  Five nets (phase 6's kinds)
+    each with its own PSK in one ESSID; the store on disk holds a zero PMK
+    for the keyver-1 net's PSK (a segment with one intact, CRC-framed
+    record, as a bad writer would leave it).  The cold run (one hit, the
+    rest misses: mixed blocks) and the warm run (all hits, no K1) must
+    both find exactly the other four."""
+    import torch
+
+    from dwpa_tpu_torch.feed import CandidateFeed
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.ops import pbkdf2_cuda
+    from dwpa_tpu_torch.pmkstore import PMKStore
+    from dwpa_tpu_torch.pmkstore import store as fmt
+
+    psks = [b"poison-net-%d-psk" % k for k in range(5)]
+    lines = five_kind_lines(psks, "pz")
+    poisoned = 3                                  # the keyver-1 net
+    words = random_words(rng, POISON_WORDS, 8, 20)
+    for k, psk in enumerate(psks):
+        words[(k + 1) * POISON_WORDS // 6] = psk
+    root = CLIENT_DIR / "pmkstore-9c"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / ESSID.hex()).mkdir(parents=True)
+    record = fmt.word_digest(psks[poisoned]) + b"\x00" * fmt.PMK_LEN
+    (root / ESSID.hex() / "seg-0-0000000000.pmkseg").write_bytes(
+        fmt.SEG_MAGIC + fmt.FRAME_MAGIC + struct.pack("<II", 1, zlib.crc32(record)) + record)
+    store = PMKStore(str(root), registry=MetricsRegistry())
+    for label in ("cold", "warm"):
+        eng = M22000Engine([ln for ln, _ in lines], batch_size=UNIT_BATCH, device=dev,
+                           pmk_store=store)
+        feed = CandidateFeed(iter(words), batch_size=UNIT_BATCH, prepack=eng.host_packer(),
+                             registry=MetricsRegistry(), name=f"poison_{label}")
+        pbkdf2_cuda.LAUNCHES = 0
+        try:
+            founds = eng.crack_blocks(feed)
+            torch.cuda.synchronize()
+        finally:
+            feed.close()
+        launches = pbkdf2_cuda.LAUNCHES
+        keep = [i for i in range(5) if i != poisoned]
+        check_founds(founds, [lines[i] for i in keep], f"phase 9c {label}", [psks[i] for i in keep])
+        want = POISON_WORDS // UNIT_BATCH if label == "cold" else 0
+        check(launches == want, f"phase 9c {label}: {launches} K1 launches")
+        print(f"phase 9c poisoned store {label}: {len(founds)}/5 found, the keyver-1 net (zero PMK "
+              f"in the store) missed as it must; K1 launches {launches} [{card}]", flush=True)
+    check(store.lookup(ESSID, psks) == [
+        b"\x00" * 32 if k == poisoned else hashlib.pbkdf2_hmac("sha1", p, ESSID, 4096, 32)
+        for k, p in enumerate(psks)], "phase 9c: the store's PSK records are wrong")
+    store.close()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -860,6 +1329,13 @@ def main():
     rules_launches, rules_err = phase_rules_engine(dev, rng, card, expand_ms)
     err = max(err, rules_err)
     rules_client_launches = phase_rules_client(card, rng, unit_pmk_s)
+    phase_mask_words(dev, card)
+    mask_launches, mask_err = phase_mask_engine(dev, card)
+    err = max(err, mask_err)
+    mask_client_launches = phase_mask_client(card)
+    store_launches = phase_store_engine(dev, card)
+    store_client_launches = phase_store_client(card, words, unit_pmk_s)
+    phase_store_poison(dev, rng, card)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -888,7 +1364,7 @@ def main():
     print(f"K2 bound: {n_full} threads x ({probe_loop} x {sm_probe.ITERS} + {probe_other}) SASS "
           f"instructions at the issue rate = {k2_bound_ms:.3f} ms; one launch "
           f"{sha1['seconds_1x'] * 1e3:.3f} ms [{card}]", flush=True)
-    print(f"chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
@@ -899,7 +1375,11 @@ def main():
         "issue_bound_ms": issue_ms, "probe_bound_ms": probe_ms,
         "launches_by_path": {"unit (phase 4)": launches, "client (phase 6)": client_launches,
                              "rules engine (phase 7b)": rules_launches,
-                             "rules client (phase 7c)": rules_client_launches},
+                             "rules client (phase 7c)": rules_client_launches,
+                             "mask (phase 8b)": mask_launches,
+                             "mask client (phase 8c)": mask_client_launches,
+                             "pmkstore (phase 9a)": store_launches,
+                             "pmkstore client (phase 9b)": store_client_launches},
     }, {
         "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,

@@ -16,9 +16,6 @@ from .main import ClientConfig, TpuCrackClient
 
 #: flag dest -> (flag, what is missing)
 DEFERRED = {
-    "pmk_cache_dir": ("--pmk-cache-dir", "the PMK store (ROADMAP later slice 4)"),
-    "pmk_cache_max_bytes": ("--pmk-cache-max-bytes",
-                            "the PMK store (ROADMAP later slice 4)"),
     "dict_cache_dir": ("--dict-cache-dir",
                        "the packed-dictionary cache (ROADMAP item DictCache)"),
     "dict_cache_max_bytes": ("--dict-cache-max-bytes",
@@ -63,6 +60,14 @@ def build_parser():
                         "dicts) on the host; pass-2 rules expand on the "
                         "device (0/1 = in-process; ignored with a warning "
                         "on hosts with fewer than N+1 cores)")
+    p.add_argument("--pmk-cache-dir",
+                   help="persistent PMK store directory: cross-unit "
+                        "PBKDF2->PMK cache with mixed hit/miss crack "
+                        "blocks (files interchangeable with dwpa_tpu's)")
+    p.add_argument("--pmk-cache-max-bytes", type=int,
+                   default=256 * 1024 * 1024,
+                   help="PMK store on-disk cap; oldest segments are "
+                        "evicted beyond it (default 256 MiB)")
     p.add_argument("--device-streams", choices=("auto", "on", "off"),
                    default="auto",
                    help="'on' (independent per-device streams) is not "
@@ -124,6 +129,8 @@ def main(argv=None):
         outbox_dir=args.outbox_dir,
         prefetch_units=args.prefetch_units,
         rule_workers=args.rule_workers,
+        pmk_cache_dir=args.pmk_cache_dir,
+        pmk_cache_max_bytes=args.pmk_cache_max_bytes,
         device=args.device,
     )
     TpuCrackClient(cfg).run()

@@ -10,8 +10,8 @@ Equivalent of the reference client's fetch->crack->submit loop
   cached by dhash) -> two-pass crack (pass 1: targeted candidates from the
   hash material + dynamic PR dict + cracked/rkg dicts expanded through the
   unit's hashcat rules on the host; pass 2: the server dicts, expanded
-  through those rules on the device when the unit carries any) ->
-  put_work;
+  through those rules on the device when the unit carries any; then the
+  unit's mask shards, generated on the device) -> put_work;
 - dictcount autotune +/-1 against the 900 s work-unit pacing target,
   clamped 1..15 (help_crack.py:947-952, get_work.php:41-46);
 - resume file: a JSON snapshot of the work unit written before cracking
@@ -26,13 +26,14 @@ call), and ``M22000Engine.crack_blocks`` stages each block's rows on a
 CUDA side stream.  A rules pass 2 feeds base-word blocks
 (``RulesFeedSource``) to ``M22000Engine.crack_rules_blocks``, which
 uploads each block once and mangles it on the device by every rule.
+Server-issued mask shards reach the engine only as ``mask_blocks``
+blocks (``crack_blocks``), which generate their candidates on the
+device.  With ``pmk_cache_dir`` set, both passes run through a
+persistent PMK store (``dwpa_tpu_torch.pmkstore``).
 
 Single process, single device.  What the port does not do yet is refused
-loudly, never approximated: a unit carrying ``masks`` (on-device mask
-generation, ROADMAP later slice 7) raises ``UnsupportedUnit`` and ``run``
-abandons it (the server's lease reap reassigns it); a PMK cache
-(slice 4), unit fusion (slice 5), forced device streams (slice 6) and a
-dict cache raise at construction.
+loudly at construction, never approximated: unit fusion (ROADMAP later
+slice 5), forced device streams (slice 6) and a dict cache.
 """
 
 import base64
@@ -46,11 +47,13 @@ from dataclasses import dataclass
 from .. import __version__
 from ..feed import CandidateFeed, RulesFeedSource
 from ..gen import DictStream, psk_candidates
+from ..gen.mask import mask_blocks
 from ..models import hashline as hl
 from ..models.m22000 import M22000Engine
 from ..obs import SpanTracer, default_registry, get_logger, setup_logging
 from ..oracle import m22000 as oracle
 from ..parallel.device import resolve_device
+from ..pmkstore import PMKStore
 from ..rules import apply_rules, parse_rules
 from ..utils.fsio import fsync_replace
 from .. import testing as synth
@@ -66,14 +69,6 @@ PACE_TARGET_S = 900.0  # work-unit pacing target (reference autotune threshold)
 #: package is never replayed by the other (stream order is only sound
 #: against the exact build that wrote it, see ``_write_resume``).
 RESUME_VERSION = f"{__version__}+torch"
-
-
-class UnsupportedUnit(Exception):
-    """A work unit needs a feature the port does not have yet.
-
-    Deliberately not a ``RuntimeError``: ``_process_with_recovery``
-    retries those at half batch, and a missing feature does not heal on
-    a retry.  ``run`` abandons the unit instead."""
 
 
 def version_tuple(v: str):
@@ -107,7 +102,12 @@ class ClientConfig:
                                     # 0 = inline/synchronous feed)
     archive: bool = True            # append-only archive.22000/archive.res
                                     # audit logs (DAW, help_crack.py:453-456)
-    pmk_cache_dir: str = None       # not ported yet (ROADMAP later slice 4)
+    pmk_cache_dir: str = None       # --pmk-cache-dir: persistent PMK
+                                    # store; repeat (ESSID, word) pairs
+                                    # skip PBKDF2 (None = off)
+    pmk_cache_max_bytes: int = 256 * 1024 * 1024  # --pmk-cache-max-bytes:
+                                    # store cap; the oldest segments are
+                                    # evicted beyond it
     dict_cache_dir: str = None      # not ported yet (ROADMAP "DictCache")
     unit_queue: int = None          # unit fusion knobs: not ported yet
     fuse_max_units: int = None      # (ROADMAP later slice 5)
@@ -145,9 +145,6 @@ class WorkResult:
 
 def _refuse_unported(cfg: ClientConfig):
     """Raise for a configured feature that the port does not have yet."""
-    if cfg.pmk_cache_dir:
-        raise NotImplementedError(
-            "pmk_cache_dir: the PMK store is not ported yet (ROADMAP later slice 4)")
     if cfg.dict_cache_dir:
         raise NotImplementedError(
             "dict_cache_dir: the packed-dictionary cache is not ported yet "
@@ -225,6 +222,14 @@ class TpuCrackClient:
         # Degraded-mode unit buffer (_prefetch_units): units leased ahead
         # while the transport is healthy, cracked while it is OPEN.
         self._unit_buffer = []
+        # Persistent PMK store (optional): repeat (ESSID, word) pairs —
+        # popular ESSIDs across uploads, overlapping dicts, pass-2
+        # replays of pass-1 words — become disk hits instead of PBKDF2.
+        self.pmk_store = None
+        if config.pmk_cache_dir:
+            self.pmk_store = PMKStore(
+                config.pmk_cache_dir, max_bytes=config.pmk_cache_max_bytes,
+                registry=self.registry)
         self.resume_path = os.path.join(config.workdir, "resume.json")
         self.potfile = config.potfile or os.path.join(config.workdir, "potfile")
         self.dictcount = max(1, min(15, config.dictcount))
@@ -484,13 +489,6 @@ class TpuCrackClient:
             return []
         return parse_rules(text.splitlines())
 
-    def _check_supported(self, work: dict):
-        """Refuse a unit the port cannot crack in full, before any work."""
-        if work.get("masks"):
-            raise UnsupportedUnit(
-                "work unit carries mask shards; on-device mask generation "
-                "is not ported yet (ROADMAP later slice 7)")
-
     def _targeted_candidates(self, engine: M22000Engine, work: dict):
         """Pass-1 generator, in the DAW client's priority order
         (help_crack.py:615-687): ESSID-fingerprint family keyspaces
@@ -570,16 +568,13 @@ class TpuCrackClient:
 
     def process_work(self, work: dict) -> WorkResult:
         """One work unit, traced end to end: the ``work_unit`` span
-        parents the phase spans (pass1/pass2 here; dict_download and
+        parents the phase spans (pass1/pass2/mask here; dict_download and
         put_work via the bound transport), and the pass PMK/s gauges
         record inside."""
         with self.tracer.span("work_unit"):
             return self._process_work(work)
 
     def _process_work(self, work: dict) -> WorkResult:
-        # Refused before anything is written: a unit this client cannot
-        # crack in full is abandoned, never half-cracked.
-        self._check_supported(work)
         # perf_counter: the elapsed drives the 900 s dictcount autotune
         # and the logged unit time — a wall-clock NTP step must not
         # corrupt either
@@ -594,23 +589,30 @@ class TpuCrackClient:
         self._write_resume(work)
         progress = work.pop("_progress", None) or {}
         skip = int(progress.get("done", 0))
-        self._resuming = skip > 0
-        if skip:
-            self._m_resume.inc(skip)
+        # Mask shards keep their own progress counter: "done" counts the
+        # pass-1/2 candidate stream, "mask_done" counts mask-keyspace
+        # candidates — mixing them would make the pass-1 fast-forward
+        # skip dict candidates that were never tried.
+        mask_skip = int(progress.get("mask_done", 0))
+        self._resuming = skip > 0 or mask_skip > 0
+        if self._resuming:
+            self._m_resume.inc(skip + mask_skip)
         else:
             # once per unit: a resume replay must not duplicate the entry
             self._archive_work(work)
         prior_cand = list(progress.get("cand", []))
         engine = M22000Engine(
             work["hashes"], nc=self.cfg.nc, batch_size=self.cfg.batch_size,
-            device=self.device,
+            device=self.device, pmk_store=self.pmk_store,
         )
         founds = []
         done = skip
+        mask_done = mask_skip
 
         def _checkpoint():
             work["_progress"] = {
                 "done": done,
+                "mask_done": mask_done,
                 "cand": prior_cand
                 + [{"k": f.line.mac_ap.hex(), "v": f.psk.hex()} for f in founds],
             }
@@ -619,6 +621,12 @@ class TpuCrackClient:
         def on_batch(consumed, new_founds):
             nonlocal done
             done += consumed
+            founds.extend(new_founds)
+            _checkpoint()
+
+        def on_mask_batch(consumed, new_founds):
+            nonlocal mask_done
+            mask_done += consumed
             founds.extend(new_founds)
             _checkpoint()
 
@@ -694,8 +702,36 @@ class TpuCrackClient:
                     engine.crack_blocks(feed2, on_batch=on_batch)
                 finally:
                     feed2.close()
-        tried = done - skip
-        tried2 = tried - tried1
+        # Mask pass: server-issued keyspace shards, generated ON DEVICE
+        # from (mask, custom, skip, limit) alone — zero candidate bytes
+        # arrived on the wire.  mask_blocks frames each shard as MaskPrep
+        # blocks in hashcat -s/-l coordinates (absolute keyspace offsets),
+        # so the mask_done fast-forward resumes mid-shard bit-identically:
+        # a restart replays exactly ``limit - done`` candidates of the
+        # lease's range.
+        mask_entries = work.get("masks") or []
+        if mask_entries:
+            with self.tracer.span("mask") as spm:
+                mrem = mask_skip
+                for shard in mask_entries:
+                    mlimit = int(shard["limit"])
+                    if mrem >= mlimit:
+                        mrem -= mlimit  # shard finished pre-restart
+                        continue
+                    custom = {k: v.encode("latin1") for k, v in
+                              (shard.get("custom") or {}).items()}
+                    blocks = mask_blocks(
+                        shard["mask"], self.cfg.batch_size,
+                        skip=int(shard["skip"]) + mrem,
+                        limit=mlimit - mrem, custom=custom)
+                    mrem = 0
+                    engine.crack_blocks(blocks, on_batch=on_mask_batch)
+            triedm = mask_done - mask_skip
+            if triedm and spm.seconds > 0:
+                self._m_pmks.labels(**{"pass": "mask"}).set(
+                    triedm / spm.seconds)
+        tried = (done - skip) + (mask_done - mask_skip)
+        tried2 = done - skip - tried1
         if tried2 and sp2.seconds > 0:
             self._m_pmks.labels(**{"pass": "2"}).set(tried2 / sp2.seconds)
 
@@ -832,7 +868,6 @@ class TpuCrackClient:
         second failure requeues the unit with backoff via the resume
         file; ``ENGINE_RETRY_LIMIT`` total attempts abandon it rather
         than wedge the loop.  Returns None when no result was produced.
-        ``UnsupportedUnit`` is not a ``RuntimeError`` and passes through.
         """
         try:
             return self.process_work(work)
@@ -893,12 +928,6 @@ class TpuCrackClient:
             self._prefetch_units()
             try:
                 res = self._process_with_recovery(work)
-            except UnsupportedUnit as e:
-                # The port cannot crack this unit in full: abandon it —
-                # the server's lease reap reassigns it to another client.
-                self._clear_resume()
-                self.log(f"unsupported work unit: {e}; abandoning unit")
-                continue
             except PermanentError as e:
                 # A 4xx mid-unit (a dict the server no longer serves,
                 # say) will not heal on replay: abandon the unit — the

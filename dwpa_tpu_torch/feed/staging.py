@@ -73,7 +73,11 @@ class DeviceStager:
         compute = torch.cuda.current_stream(self.device)
         compute.wait_event(done)
         if prep is not None:
-            prep[2].record_stream(compute)
+            rows = prep[2]  # a tensor, or a PMK-store MixedPrep
+            staged = (rows.device_tensors() if hasattr(rows, "device_tensors")
+                      else (rows,))
+            for t in staged:
+                t.record_stream(compute)
 
     def __iter__(self):
         staged = deque()  # (block, prep, event), oldest first

@@ -18,7 +18,14 @@ Layout of the device work:
   fixed-shape int32 word tensors.  A rules attack
   (``crack_rules_blocks``) uploads each base block once and mangles it on
   the device by every rule (``rules/device.py``) ahead of PBKDF2 and
-  verify (``parallel/step.py`` ``build_rules_step``).
+  verify (``parallel/step.py`` ``build_rules_step``).  A mask attack
+  (``crack_mask``) generates its candidates on the device
+  (``gen/mask.py`` ``device_mask_words``) and uploads none.
+- With a PMK store attached (``pmk_store=``, ``dwpa_tpu_torch.pmkstore``)
+  each block is split on the feed's producer threads into cache hits and
+  misses; PBKDF2 runs on the misses only, the cached PMKs are gathered in
+  around them (``parallel/step.py`` ``mix_step``), and the new PMKs are
+  written back after the hits gate.
 """
 
 import struct
@@ -28,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..gen.mask import device_mask_words, mask_blocks, mask_words
 from ..native import pack_candidates_fast
 from ..ops import hmac as hm
 from ..ops.aes import aes128_cmac
@@ -36,6 +44,7 @@ from ..ops.pbkdf2 import pbkdf2_sha1_pmk
 from ..ops.pbkdf2_cuda import pbkdf2_sha1_pmk_cuda
 from ..oracle import m22000 as oracle
 from ..parallel.device import resolve_device
+from ..pmkstore.stage import MixedPrep, split_block
 from ..utils import bytesops as bo
 from . import hashline as hl
 
@@ -373,6 +382,23 @@ class _RuleWords:
         return out
 
 
+class _MaskWords:
+    """pws stand-in for on-device mask generation: column ``b`` is the
+    word at keyspace index ``start + b``, computed on demand on the host,
+    so a word is only materialized for the rare hit columns."""
+
+    __slots__ = ("mask", "custom", "start")
+
+    def __init__(self, mask, custom, start):
+        self.mask = mask
+        self.custom = custom
+        self.start = start
+
+    def __getitem__(self, b):
+        return next(mask_words(self.mask, self.custom,
+                               skip=self.start + b, limit=1))
+
+
 class _RulesCtx:
     """Shared per-attack context for the device-expansion seam
     (``M22000Engine._rules_flush``): the split rule sets, the expanded
@@ -533,8 +559,13 @@ class M22000Engine:
     """
 
     def __init__(self, lines, nc: int = DEFAULT_NC, batch_size: int = 4096,
-                 device=None):
+                 device=None, pmk_store=None):
         self.device = resolve_device(device)
+        # Optional persistent PBKDF2 cache (dwpa_tpu_torch.pmkstore): the
+        # feed packer splits blocks into cache hits/misses on the producer
+        # threads, the mixed dispatch computes only the misses, and
+        # _collect writes newly derived PMKs back after the device fetch.
+        self.pmk_store = pmk_store
         self.batch_size = int(batch_size)
         self.nc = nc
         self.groups = {}  # essid -> list[PreppedNet] (live/uncracked view)
@@ -663,16 +694,27 @@ class M22000Engine:
         packer is unavailable (the block then takes the full ``_prepare``
         path on the consumer thread, unchanged semantics).
         ``pack(words, pre=...)`` accepts an already-packed
-        ``(rows, lens, nvalid)`` and returns it as is (the feed detects
+        ``(rows, lens, nvalid)`` and skips the packer (the feed detects
         this via ``pack.supports_pre``).
+
+        With a ``pmk_store`` attached the closure additionally splits the
+        packed block into per-ESSID cache hits and misses
+        (``pmkstore.stage.split_block`` — store lookups are mmap/dict
+        reads, still pure host work) and returns a ``MixedPrep`` the
+        engine's mixed dispatch consumes.
         """
         bs = self.batch_size
+        store = self.pmk_store
+        essids = list(self._salts) if store is not None else None
 
         def pack(words, pre=None):
-            if pre is not None:
-                return pre
-            return pack_candidates_fast(words, MIN_PSK_LEN, MAX_PSK_LEN,
-                                        capacity=max(bs, len(words)))
+            fast = pre
+            if fast is None:
+                fast = pack_candidates_fast(words, MIN_PSK_LEN, MAX_PSK_LEN,
+                                            capacity=max(bs, len(words)))
+            if fast is None or store is None or fast[2] == 0:
+                return fast
+            return split_block(store, essids, *fast, bs, 1)
 
         pack.supports_pre = True
         return pack
@@ -697,27 +739,53 @@ class M22000Engine:
         return _PackedWords(packed, lens), nvalid, rows
 
     def _prepare_block(self, block, stager=None):
-        """Prep one feed block (``feed.framing.Block``): the staged fast
-        path when a producer prepacked it, full ``_prepare`` otherwise.
-        Blocks for on-device mask generation and PMK-store mixed blocks
-        are refused until their slices land."""
+        """Prep one feed block (``feed.framing.Block``): on-device
+        generation for a mask block, the store-split mixed path when the
+        producer looked the block up in the PMK store, the staged fast
+        path when it merely prepacked it, full ``_prepare`` otherwise."""
         prep = getattr(block, "prep", None)
         if prep is None:
             return self._prepare(block.words)
         if hasattr(prep, "mask_gen"):
-            raise NotImplementedError(
-                "on-device mask generation is not ported yet "
-                "(ROADMAP later slice 7)")
+            # on-device mask generation (gen.mask.MaskPrep): no host
+            # bytes at all — generate exactly the block's keyspace slice
+            # on this engine's device (a short last block only its own
+            # rows)
+            t0 = time.perf_counter()
+            pw_words = device_mask_words(prep.mask, prep.start, block.count,
+                                         prep.custom, device=self.device)
+            self.stage_times["prepare"] += time.perf_counter() - t0
+            return (_MaskWords(prep.mask, prep.custom, prep.start),
+                    block.count, pw_words)
         if hasattr(prep, "materialize"):
             # a lazy packed prep (framing.PackedSlices) normally
             # materializes on the feed's producer threads; blocks
             # consumed without a feed materialize here instead
             prep = prep.materialize()
-        if not isinstance(prep, tuple):
-            raise NotImplementedError(
-                "PMK-store mixed blocks are not ported yet "
-                "(ROADMAP later slice 4)")
+        if isinstance(prep, MixedPrep):
+            return self._prepare_mixed(prep, stager)
         return self._prepare_staged(*prep, stager=stager)
+
+    def _prepare_mixed(self, mp, stager=None):
+        """Consumer-side staging of a store-split block: start the async
+        H2D of each group's compacted miss sub-batch (column-trimmed like
+        ``_prepare_staged``) and of its cached-PMK matrix and gather map,
+        on the stager's side stream when one is given.  Same
+        ``stage_times["prepare"]`` accounting as the staged path — the
+        split itself ran on a producer thread and lives in
+        ``feed:produce`` spans."""
+        t0 = time.perf_counter()
+        for ent in mp.entries.values():
+            if ent.nmiss:
+                w = _trim_cols(int(ent.miss_lens.max()))
+                ent.miss_dev = self._h2d(
+                    np.ascontiguousarray(ent.miss_rows[:, :w]), stager)
+            if ent.nhit:
+                ent.cached_dev = self._h2d(ent.cached, stager)
+                if ent.nmiss:
+                    ent.idx_dev = self._h2d(ent.idx, stager)
+        self.stage_times["prepare"] += time.perf_counter() - t0
+        return _PackedWords(mp.packed, mp.lens), mp.nvalid, mp
 
     def _dispatch(self, prep):
         """Enqueue the crack step for every live ESSID group (no host sync).
@@ -728,10 +796,38 @@ class M22000Engine:
         """
         t0 = time.perf_counter()
         pws, nvalid, pw_words = prep
+        if isinstance(pw_words, MixedPrep):
+            return self._dispatch_mixed(pws, nvalid, pw_words, t0)
         outs = [(self._full[essid], self._step_for(essid)(pw_words))
                 for essid in list(self.groups)]
         self.stage_times["dispatch"] += time.perf_counter() - t0
         return pws, nvalid, outs
+
+    def _dispatch_mixed(self, pws, nvalid, mp, t0):
+        """Mixed hit/miss dispatch (PMK store): per group, PBKDF2 runs
+        only on the compacted miss sub-batch, cached PMKs are gathered
+        around the computed ones into the full ``int32[8, B]`` matrix
+        (``parallel.step.mix_step``), and the group's verify runs
+        unchanged on that matrix — an all-hit block dispatches NO PBKDF2
+        work.  The returned record carries the write-back list (miss PMK
+        device tensors + their words) that ``_collect`` flushes to the
+        store AFTER its device fetch, on the consumer thread."""
+        from ..parallel.step import mix_step
+
+        outs, writeback = [], []
+        for essid in list(self.groups):
+            step = self._step_for(essid)
+            ent = mp.entries[essid]
+            if ent.nmiss == 0:
+                pmk = ent.cached_dev
+            else:
+                pmk_miss = step.compute_pmk(ent.miss_dev)
+                writeback.append((essid, pmk_miss, ent.miss_words, ent.nmiss))
+                pmk = (pmk_miss if ent.nhit == 0 else
+                       mix_step(pmk_miss, ent.cached_dev, ent.idx_dev))
+            outs.append((self._full[essid], step.verify(pmk)))
+        self.stage_times["dispatch"] += time.perf_counter() - t0
+        return pws, nvalid, outs, writeback
 
     def _decode(self, group, found, pmk_col, pws, live) -> list:
         """Decode one found matrix ([N, V_max, B]) into Found records.
@@ -794,9 +890,10 @@ class M22000Engine:
         return founds
 
     def _collect(self, dispatched) -> list:
-        """Sync stage: gate on hits, decode founds, prune cracked nets."""
+        """Sync stage: gate on hits, decode founds, prune cracked nets,
+        then write a mixed block's new PMKs back to the store."""
         t0 = time.perf_counter()
-        pws, nvalid, outs = dispatched
+        pws, nvalid, outs = dispatched[:3]
         founds = []
         live = {id(n.line) for g in self.groups.values() for n in g}
         # The hits gate: one scalar per group, fetched together, is the
@@ -822,6 +919,15 @@ class M22000Engine:
                                    pws, live)
         for f in founds:
             self.remove(f)
+        if len(dispatched) > 3 and self.pmk_store is not None:
+            # PMK-store write-back: the one place newly derived PMKs leave
+            # the device outside a find.  It runs on the consumer thread
+            # after the hits-gate fetch, one store call per batch; the
+            # [8, nmiss] miss matrices are an intentional per-batch D2H —
+            # they turn the NEXT unit's repeats into hits.
+            self.pmk_store.put_many(
+                (essid, words, to_numpy(pmk[:, :nmiss]))
+                for essid, pmk, words, nmiss in dispatched[3])
         self.stage_times["collect"] += time.perf_counter() - t0
         return founds
 
@@ -899,6 +1005,25 @@ class M22000Engine:
                 pipe.skip(block.count)
         pipe.drain()
         return pipe.founds
+
+    def crack_mask(self, mask: str, skip: int = 0, limit: int = None,
+                   custom: dict = None, on_batch=None) -> list:
+        """Mask attack with on-device candidate generation.
+
+        Unlike ``crack``, no candidate bytes ever exist on the host: each
+        block is generated by ``gen.mask.device_mask_words`` in
+        ``_prepare_block`` and fed straight to the crack steps, so the
+        only host work per batch is an O(positions) digit vector and the
+        hits-gate scalar.  Words are materialized from their keyspace
+        index only for the rare hit columns.  ``skip``/``limit`` slice the
+        keyspace exactly like ``gen.mask.mask_words`` (hashcat -s/-l
+        semantics).  A thin front over ``crack_blocks`` with
+        ``gen.mask.mask_blocks``'s ``MaskPrep`` stream.
+        """
+        return self.crack_blocks(
+            mask_blocks(mask, self.batch_size, skip=skip, limit=limit,
+                        custom=custom),
+            on_batch=on_batch)
 
     def _rules_flush(self, ctx, batch, account, push, skip):
         """One base-word flush through the device-expansion seam.

@@ -10,8 +10,8 @@ shapes).  Each group's constants are stacked along a leading net axis,
 padded to a power-of-two bucket, and verified as one ``[N, V, B]`` batch
 of torch ops — nets and nonce-correction variants are tensor dimensions,
 never Python loops.  The step keeps two seams, ``compute_pmk`` and
-``verify``, so a PMK matrix that arrived by another route can be verified
-unchanged.
+``verify``, so a PMK matrix that arrived by another route (the PMK
+store's ``mix_step``) can be verified unchanged.
 """
 
 import numpy as np
@@ -163,6 +163,19 @@ class CrackStep:
 
     def __call__(self, pw_words):
         return self.verify(self.compute_pmk(pw_words))
+
+
+def mix_step(pmk_miss, cached, idx):
+    """``(pmk_miss int32[8, Mb], cached int32[8, B], idx int32[B]) ->
+    pmk int32[8, B]``: the PMK-store mixed-block assembly, a plain gather.
+
+    ``pmk_miss`` is the PBKDF2 output of the compacted miss sub-batch,
+    ``cached`` the host-built matrix with cache-hit PMKs at their batch
+    columns, and ``idx`` the gather map over ``cat([pmk_miss, cached], 1)``
+    (misses read their computed slot, hits and padding read ``cached`` at
+    their own column — ``pmkstore.stage.split_block`` builds it).
+    """
+    return torch.cat((pmk_miss, cached), 1).index_select(1, idx)
 
 
 #: Rules per fused rules dispatch (build_rules_step).  The engine plans,

@@ -32,8 +32,7 @@ from dwpa_tpu.feed import RulesFeedSource as JRulesFeedSource
 from dwpa_tpu.rules import parse_rules as jparse_rules
 from dwpa_tpu.server import Database, ServerCore, make_wsgi_app
 from dwpa_tpu_torch.client import main as cm
-from dwpa_tpu_torch.client.main import (ClientConfig, TpuCrackClient,
-                                        UnsupportedUnit)
+from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
 from dwpa_tpu_torch.client.protocol import ServerAPI
 from dwpa_tpu_torch.models import m22000 as tm
 from dwpa_tpu_torch.obs import MetricsRegistry
@@ -557,11 +556,15 @@ def test_rules_unit_resume_counts_like_jax_client(server, tmp_path):
 
 
 def test_mask_unit_abandoned_as_unsupported(server, tmp_path):
-    _ingest(server, [jtfx.make_pmkid_line(PSK, ESSID, seed="mu1")])
+    """A unit carrying mask shards used to be abandoned as unsupported;
+    now run() cracks it: the shard's planted PSK is generated on the
+    device, found and accepted, and the unit is not abandoned."""
+    mask_psk = b"00000777"
+    _ingest(server, [jtfx.make_pmkid_line(mask_psk, ESSID, seed="mu1")])
     _add_dict(server, [b"base-word-1"])
     client = _client(server, tmp_path)
     work = client.api.get_work(1)
-    work["masks"] = [{"mask": "?d" * 8, "custom": {}, "skip": 0, "limit": 1000}]
+    work["masks"] = [{"mask": "?d" * 8, "custom": {}, "skip": 700, "limit": 100}]
     client._write_resume(work)  # the unit comes back through the resume file
     calls = []
     real = client.process_work
@@ -569,9 +572,9 @@ def test_mask_unit_abandoned_as_unsupported(server, tmp_path):
     _run_until_idle(client)
     assert calls == [1]
     assert not os.path.exists(client.resume_path)
-    assert server.db.q1("SELECT n_state FROM nets")["n_state"] == 0
-    with pytest.raises(UnsupportedUnit, match="slice 7"):
-        client.process_work(dict(work))
+    res = client.last_result
+    assert res.accepted and [f.psk for f in res.founds] == [mask_psk]
+    assert server.db.q1("SELECT n_state FROM nets")["n_state"] == 1
 
 
 def test_pass1_candidates_match_jax_client(server, tmp_path):
@@ -610,8 +613,7 @@ def test_pass1_candidates_match_jax_client(server, tmp_path):
 
 
 def test_unported_features_refused(server, tmp_path):
-    for kw, slice_no in ((dict(pmk_cache_dir=str(tmp_path / "p")), "slice 4"),
-                         (dict(dict_cache_dir=str(tmp_path / "d")), "DictCache"),
+    for kw, slice_no in ((dict(dict_cache_dir=str(tmp_path / "d")), "DictCache"),
                          (dict(unit_queue=4), "slice 5"),
                          (dict(device_streams="on"), "slice 6")):
         with pytest.raises(NotImplementedError, match=slice_no):
@@ -623,7 +625,7 @@ def test_client_cli_refuses_deferred_flags():
 
     a = build_parser().parse_args(["--url", "http://s/", "--device", "cuda:0"])
     assert (a.url, a.device) == ("http://s/", "cuda:0")
-    for argv in (["--url", "http://s/", "--pmk-cache-dir", "x"],
+    for argv in (["--url", "http://s/", "--dict-cache-dir", "x"],
                  ["--url", "http://s/", "--multihost"],
                  ["--url", "http://s/", "--device-streams", "on"],
                  []):

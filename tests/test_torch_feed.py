@@ -285,18 +285,26 @@ def test_device_stager_defaults_to_the_card(monkeypatch):
         tfeed.DeviceStager(NoDevice(), iter(()))
 
 
-def test_prepare_block_refuses_unported_preps():
-    eng = tm.M22000Engine(five_net_group(), batch_size=16, device="cpu")
+def test_prepare_block_refuses_unported_preps(tmp_path):
+    """The mask and PMK-store preps, which ``_prepare_block`` refused
+    until they were ported, now prepare: a mask block generates its own
+    rows, a store-split block stages its misses."""
+    from dwpa_tpu_torch.gen.mask import MaskPrep, device_mask_words
+    from dwpa_tpu_torch.pmkstore import MixedPrep, PMKStore
 
-    class MaskPrep:
-        mask_gen = True
-
-    class MixedPrep:
-        entries = {}
-
-    for prep in (MaskPrep(), MixedPrep()):
-        with pytest.raises(NotImplementedError):
-            eng._prepare_block(tfeed.Block(offset=0, count=1, words=[], prep=prep))
+    eng = tm.M22000Engine(five_net_group(), batch_size=16, device="cpu",
+                          pmk_store=PMKStore(str(tmp_path)))
+    blk = tfeed.Block(offset=5, count=3, words=[], prep=MaskPrep("?d" * 8, None, 5))
+    pws, nvalid, rows = eng._prepare_block(blk)
+    assert nvalid == 3 and pws[2] == b"00000007"
+    assert torch.equal(rows, device_mask_words("?d" * 8, 5, 3, device="cpu"))
+    words = [b"feedword-%02d" % i for i in range(10)]
+    mixed = eng.host_packer()(words)
+    assert isinstance(mixed, MixedPrep)
+    pws, nvalid, prep = eng._prepare_block(
+        tfeed.Block(offset=0, count=10, words=words, prep=mixed))
+    assert nvalid == 10 and prep is mixed and pws[9] == words[9]
+    assert [t.shape for t in prep.device_tensors()] == [(16, 4)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The port on a CUDA device: the PBKDF2 kernel, the engine, the SM
-probe kernel and the rule interpreter.
+probe kernel, the rule interpreter, the mask generator and the PMK
+store's mixed blocks.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -145,3 +146,56 @@ def test_expand_on_the_card_matches_cpu(cuda_device):  # noqa: F811
         steps = encode_rule(rule)
         got = expand_batch(packed_dev, lens_dev, steps)
         assert got.is_cuda and torch.equal(got.cpu(), expand_batch(packed, lens, steps)), rule
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask,custom,start", [
+    ("?d" * 8, None, 0),
+    ("?d" * 8, None, 99_999_980),
+    ("ab?l?d", None, 7),
+    ("?d" * 10, None, 9_999_999_000),
+    ("?1?b?1?b?d?d", {"1": b"\x00\x7f\x80\xff"}, 123_456_789),
+    ("?l?u" * 31 + "?d", None, 10 ** 85 + 12_345),
+])
+def test_device_mask_words_on_the_card_matches_cpu(cuda_device, mask, custom, start):  # noqa: F811
+    """The mask generator on cuda:0 equals its CPU run and the host pack
+    (the keyspace end, a start beyond 2**32, bytes 0 and >= 128, 63
+    positions)."""
+    from dwpa_tpu_torch.gen.mask import device_mask_words, mask_words
+
+    got = device_mask_words(mask, start, 4099, custom, device=cuda_device)
+    assert got.is_cuda and got.dtype == torch.int32
+    ref = device_mask_words(mask, start, 4099, custom, device="cpu")
+    assert torch.equal(got.cpu(), ref)
+    host = list(mask_words(mask, custom, skip=start, limit=4099))
+    w = got.shape[1]
+    np.testing.assert_array_equal(to_numpy(got)[:len(host)], bo.pack_passwords_be(host)[:, :w])
+
+
+@pytest.mark.gpu
+def test_mixed_store_block_through_the_kernel(cuda_device, tmp_path):  # noqa: F811
+    """A PMK-store block with hits and misses on the card: K1 hashes the
+    miss sub-batch only, the cached PMKs are gathered in, the planted PSK
+    (a hit) is found, and every written-back PMK equals hashlib's."""
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.feed import CandidateFeed
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.pmkstore import PMKStore, miss_width
+
+    essid = b"card-store"
+    words = [b"card-store-%05d" % i for i in range(1023)] + [SLICE_PSK]
+    seeded = words[::3] + [SLICE_PSK]
+    store = PMKStore(str(tmp_path), registry=MetricsRegistry())
+    store.put(essid, seeded, [hashlib.pbkdf2_hmac("sha1", w, essid, 4096, 32) for w in seeded])
+    eng = tm.M22000Engine([tfx.make_pmkid_line(SLICE_PSK, essid, seed="card-st")],
+                          batch_size=1024, device=cuda_device, pmk_store=store)
+    feed = CandidateFeed(iter(words), 1024, prepack=eng.host_packer(),
+                         registry=MetricsRegistry())
+    before = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    founds = eng.crack_blocks(feed)
+    feed.close()
+    assert [f.psk for f in founds] == [SLICE_PSK]
+    assert pbkdf2_cuda.LAUNCHES == before[0] + 1 and pbkdf2.CALLS == before[1]
+    assert miss_width(1024, 1, 1024 - len(seeded)) == 1024  # 682 misses: the full width
+    assert store.lookup(essid, words) == [hashlib.pbkdf2_hmac("sha1", w, essid, 4096, 32)
+                                          for w in words]
