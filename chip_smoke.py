@@ -63,7 +63,18 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    PMKs held to hashlib; (b) phase 6's unit through ``run()`` with a PMK
    store, cold then warm (no K1 in the warm pass 2); (c) a poisoned-store
    control: one net's PSK carries a zero PMK, and both runs miss exactly
-   that net.
+   that net;
+10. mixed-ESSID unit fusion: (a) ``fused_pmk_step`` on one 131072-lane
+   batch of 8 units x 16,000 words against the plain version at 2
+   iterations and hashlib at 4096 on 64 lanes; (b) the JAX bench's
+   ``small_units`` configuration (8 PMKID units x 1000 words), one engine
+   per unit through ``crack`` against one engine through ``crack_fused``:
+   the same founds, 8 K1 launches against 1; (c) 32 units of 16,000 words
+   (phase 6's five kinds in turn, two units sharing an ESSID) through the
+   client's ``fused_executor`` (``MultiUnitExecutor``, unit_queue 4,
+   fuse_max_units 8): every PSK found, one K1 launch per fused batch;
+   (d) that stream through a fresh PMK store cold, fully warm (no K1) and
+   half warm (``mix_step``), the store's sampled records held to hashlib.
 
 It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -129,6 +140,15 @@ STORE_BATCHES = 4                       # bench.py:320 pmkstore: 4 x 131072, ove
 STORE_PERIOD = 8
 STORE_SAMPLE = 256                      # written PMKs held to hashlib per pass
 POISON_WORDS = 2 * UNIT_BATCH
+FUSED_UNITS = 8                         # 10a: 8 units x 16,000 words in one 131072-lane batch
+FUSED_WORDS = 16_000
+FUSED_SAMPLE = 8                        # 10a: lanes per unit held to hashlib at 4096
+SMALL_UNITS = 8                         # 10b: bench.py:502 small_units, 8 x 1000 words
+SMALL_WORDS = 1000
+STREAM_UNITS = 32                       # 10c/10d: the executor's stream
+UNIT_QUEUE = 4
+FUSE_MAX_UNITS = 8
+STREAM_SAMPLE = 64                      # 10d: store records held to hashlib per run
 
 
 def check(cond, msg):
@@ -213,20 +233,24 @@ def phase_kernel(dev, rng, card):
     return err
 
 
-def five_kind_lines(psks, tag):
-    """The mixed, permuted kinds of the JAX package's multi-chip dry run,
-    each net with its own PSK, as (line, (NC delta, endian)); the second
-    keyver-2 net only cracks with a nonce correction."""
+def kind_line(k, psk, essid, tag):
+    """Net ``k`` (0-4) of the five kinds below, as (line, (NC delta, endian))."""
     from dwpa_tpu_torch import testing as tfx
 
-    return [
-        (tfx.make_eapol_line(psks[0], ESSID, keyver=2, seed=f"{tag}-k2a"), (0, "")),
-        (tfx.make_pmkid_line(psks[1], ESSID, seed=f"{tag}-pmk"), (0, "")),
-        (tfx.make_eapol_line(psks[2], ESSID, keyver=2, nc_delta=-2, endian="BE",
-                             seed=f"{tag}-k2b"), (-2, "BE")),
-        (tfx.make_eapol_line(psks[3], ESSID, keyver=1, seed=f"{tag}-k1"), (0, "")),
-        (tfx.make_eapol_line(psks[4], ESSID, keyver=3, seed=f"{tag}-k3"), (0, "")),
-    ]
+    if k == 1:
+        return tfx.make_pmkid_line(psk, essid, seed=f"{tag}-pmk"), (0, "")
+    keyver, nc, endian, name = [(2, 0, "", "k2a"), None, (2, -2, "BE", "k2b"),
+                                (1, 0, "", "k1"), (3, 0, "", "k3")][k]
+    kw = dict(nc_delta=nc, endian=endian) if nc else {}
+    return tfx.make_eapol_line(psk, essid, keyver=keyver, seed=f"{tag}-{name}", **kw), (nc, endian)
+
+
+def five_kind_lines(psks, tag, essid=ESSID):
+    """The mixed, permuted kinds of the JAX package's multi-chip dry run,
+    each net with its own PSK, as (line, (NC delta, endian)): keyver 2,
+    PMKID, keyver 2 that only cracks with a nonce correction, keyver 1,
+    keyver 3."""
+    return [kind_line(k, psks[k], essid, tag) for k in range(5)]
 
 
 def unit_lines():
@@ -1270,6 +1294,267 @@ def phase_store_poison(dev, rng, card):
     shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_fused_step(dev, rng, card):
+    """Phase 10a: K1 through the fused step.  One fused batch of 8 units x
+    16,000 seeded words (131072 lanes, an [8, 16] salt table): the step
+    against the plain version at 2 iterations, and 8 lanes of each unit
+    against hashlib under that unit's ESSID at 4096.  Returns (max_abs_err,
+    ms of the step at 4096)."""
+    import torch
+
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.ops.common import to_numpy, to_torch
+    from dwpa_tpu_torch.parallel.step import fused_pmk_step
+    from dwpa_tpu_torch.sched import fuse_units
+    from dwpa_tpu_torch.utils import bytesops as bo
+
+    parts = [(b"fused-step-%d" % u, random_words(rng, FUSED_WORDS, 8, 20), FUSED_WORDS)
+             for u in range(FUSED_UNITS)]
+    fb = fuse_units(parts, UNIT_BATCH, 1, FUSED_UNITS)
+    check((fb.width, fb.table1.shape) == (UNIT_BATCH, (FUSED_UNITS, 16)),
+          f"phase 10a: fused width {fb.width}, table {fb.table1.shape}")
+    w = 8
+    rows, uid, t1, t2 = (to_torch(a, dev) for a in (
+        np.ascontiguousarray(fb.miss_rows[:, :w]), fb.unit_id, fb.table1, fb.table2))
+    got = fused_pmk_step(rows, uid, t1, t2, iterations=2)
+    ref = pbkdf2.pbkdf2_sha1_pmk(rows, t1.index_select(0, uid).contiguous(),
+                                 t2.index_select(0, uid).contiguous(), iterations=2)
+    err = int((got.long() - ref.long()).abs().max())
+    check(torch.equal(got, ref), "phase 10a: fused step != plain at 2 iterations")
+    before = pbkdf2_cuda.LAUNCHES
+    pmk = to_numpy(fused_pmk_step(rows, uid, t1, t2))
+    check(pbkdf2_cuda.LAUNCHES == before + 1, "phase 10a: the fused step did not launch K1 once")
+    for u in fb.units:
+        for i in rng.choice(u.nvalid, FUSED_SAMPLE, replace=False):
+            check(bo.words_to_bytes_be(pmk[:, u.lo + int(i)]) == hashlib.pbkdf2_hmac(
+                "sha1", u.words[int(i)], u.key, 4096, 32),
+                f"phase 10a: lane {u.lo + int(i)} != hashlib under {u.key!r}")
+    ms = cuda_ms(lambda: fused_pmk_step(rows, uid, t1, t2), 5)
+    print(f"phase 10a fused step: {FUSED_UNITS} units x {FUSED_WORDS} words in one "
+          f"{fb.width}-lane batch (W={w}, table {list(fb.table1.shape)}); exact vs plain at 2 "
+          f"iterations, {FUSED_UNITS * FUSED_SAMPLE} lanes vs hashlib at 4096 under their own "
+          f"ESSID; gather + K1 {ms:.3f} ms (median of 5, CUDA events) [{card}]", flush=True)
+    return err, ms
+
+
+def small_units(tag):
+    """bench.py:502's small_units stream: 8 units, each one PMKID net with
+    its PSK planted last among 1000 words; as (line, essid, words, psk)."""
+    from dwpa_tpu_torch import testing as tfx
+
+    units = []
+    for i in range(SMALL_UNITS):
+        psk = ("fusedpass-%s-%03d" % (tag, i)).encode()
+        essid = ("bench-small-%s-%d" % (tag, i)).encode()
+        words = [("su%s%d-%07d" % (tag, i, j)).encode() for j in range(SMALL_WORDS - 1)] + [psk]
+        units.append((tfx.make_pmkid_line(psk, essid, seed=f"su-{tag}-{i}"), essid, words, psk))
+    return units
+
+
+def spy_fused():
+    """Record every ``FusedBatch`` the engine packs and each engine's stage
+    times after its ``crack_fused``; returns (batches, engines, restore)."""
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.sched import fuse as fuse_mod
+
+    batches, engines = [], []
+    real_fuse, real_crack = fuse_mod.fuse_units, M22000Engine.crack_fused
+
+    def fuse(*args, **kwargs):
+        fb = real_fuse(*args, **kwargs)
+        batches.append(fb)
+        return fb
+
+    def crack_fused(self, *args, **kwargs):
+        out = real_crack(self, *args, **kwargs)
+        engines.append(dict(self.stage_times))
+        return out
+
+    fuse_mod.fuse_units, M22000Engine.crack_fused = fuse, crack_fused
+
+    def restore():
+        fuse_mod.fuse_units, M22000Engine.crack_fused = real_fuse, real_crack
+
+    return batches, engines, restore
+
+
+def phase_small_units(dev, card):
+    """Phase 10b: the JAX bench's small_units configuration, serial (one
+    engine per unit through ``crack``) against fused (one engine through
+    ``crack_fused``), both after same-shaped warm-ups.  Returns the fused
+    leg's K1 launches."""
+    import torch
+
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.sched import fused_width
+
+    line, _, words, _ = small_units("warm-serial")[0]
+    M22000Engine([line], batch_size=UNIT_BATCH, device=dev).crack(words)
+    warm = small_units("warm-fused")
+    M22000Engine([u[0] for u in warm], batch_size=UNIT_BATCH, device=dev).crack_fused(
+        [(u[1], u[2]) for u in warm], max_units=SMALL_UNITS)
+    units = small_units("run")
+    n = SMALL_UNITS * SMALL_WORDS
+    expected = sorted((e, p) for _, e, _, p in units)
+    torch.cuda.synchronize()
+    pbkdf2_cuda.LAUNCHES = 0
+    pbkdf2.CALLS = 0
+    t0 = time.perf_counter()
+    serial = [(f.line.essid, f.psk) for line, _, words, _ in units
+              for f in M22000Engine([line], batch_size=UNIT_BATCH, device=dev).crack(words)]
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    serial_launches = pbkdf2_cuda.LAUNCHES
+    eng = M22000Engine([u[0] for u in units], batch_size=UNIT_BATCH, device=dev)
+    stats = []
+    torch.cuda.synchronize()
+    pbkdf2_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    fused = eng.crack_fused([(u[1], u[2]) for u in units], max_units=SMALL_UNITS,
+                            on_fused=lambda fb: stats.append((len(fb.units), fb.width, fb.fill)))
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_launches = pbkdf2_cuda.LAUNCHES
+    check(pbkdf2.CALLS == 0, "phase 10b ran the plain PBKDF2")
+    check(sorted(serial) == expected, f"phase 10b: the serial leg found {sorted(serial)}")
+    check(sorted((f.line.essid, f.psk) for f in fused) == sorted(serial),
+          "phase 10b: the fused leg's founds differ from the serial leg's")
+    width = fused_width(UNIT_BATCH, 1, n)
+    check(stats == [(SMALL_UNITS, width, n / width)], f"phase 10b: fused batches {stats}")
+    check((serial_launches, fused_launches) == (SMALL_UNITS, 1),
+          f"phase 10b: K1 launches serial {serial_launches}, fused {fused_launches}")
+    print(f"phase 10b small_units ({SMALL_UNITS} units x {SMALL_WORDS} words, batch "
+          f"{UNIT_BATCH}): serial {n / serial_s:.1f} PMK/s ({serial_s:.3f} s), fused "
+          f"{n / fused_s:.1f} PMK/s ({fused_s:.3f} s), fused / serial {serial_s / fused_s:.3f}x; "
+          f"fused width {width}, fill {n / width:.4f}, {SMALL_UNITS} units per batch; K1 "
+          f"launches serial {serial_launches}, fused {fused_launches}; founds identical; fused "
+          f"stage host seconds {eng.stage_times} [{card}]", flush=True)
+    return fused_launches
+
+
+def stream_units(rng):
+    """Phase 10c's stream: 32 units of 16,000 seeded words, each with one
+    net of the five kinds in turn and its PSK at a seeded position; units 0
+    and 1 share an ESSID.  As (unit lines with (NC, endian), essid, words,
+    psk, plant)."""
+    units = []
+    for u in range(STREAM_UNITS):
+        essid = b"fused-stream-%02d" % (u if u != 1 else 0)
+        psk = b"stream-psk-%02d" % u
+        words = random_words(rng, FUSED_WORDS, 8, 20)
+        plant = int(rng.integers(0, FUSED_WORDS))
+        words[plant] = psk
+        units.append((kind_line(u % 5, psk, essid, f"st{u}"), essid, words, psk, plant))
+    return units
+
+
+def run_stream(client, units, label, card, want_launches=None):
+    """One pass of the stream through ``client.fused_executor``: every unit
+    done with its PSK, none failed, K1 launched once per fused batch with
+    misses.  Returns (K1 launches, wall s)."""
+    import torch
+
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.sched import WorkUnit, fused_width
+
+    work = [WorkUnit(uid=u, lines=[line], words=words)
+            for u, ((line, _), _, words, _, _) in enumerate(units)]
+    ex = client.fused_executor(work)
+    batches, engines, restore = spy_fused()
+    torch.cuda.synchronize()
+    pbkdf2_cuda.LAUNCHES = 0
+    pbkdf2.CALLS = 0
+    try:
+        t0 = time.perf_counter()
+        done = ex.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = pbkdf2_cuda.LAUNCHES
+    check(pbkdf2.CALLS == 0, f"{label} ran the plain PBKDF2")
+    check(ex.failed == [] and sorted(u.uid for u in done) == list(range(STREAM_UNITS)),
+          f"{label}: done {sorted(u.uid for u in done)}, failed {[u.uid for u in ex.failed]}")
+    for u in done:
+        (line, (nc, endian)), essid, _, psk, _ = units[u.uid]
+        want = [(line, psk, nc, endian, hashlib.pbkdf2_hmac("sha1", psk, essid, 4096, 32))]
+        check([(f.line.raw, f.psk, f.nc, f.endian, f.pmk) for f in u.founds] == want,
+              f"{label}: unit {u.uid} found {[(f.psk, f.nc, f.endian) for f in u.founds]}")
+        check(u.consumed == FUSED_WORDS, f"{label}: unit {u.uid} consumed {u.consumed}")
+    with_miss = sum(1 for fb in batches if fb.nmiss)
+    check(launches == with_miss, f"{label}: {launches} K1 launches for {with_miss} fused "
+                                 f"batches with misses")
+    if want_launches is not None:
+        check(launches == want_launches, f"{label}: {launches} K1 launches, want {want_launches}")
+    for fb in batches:
+        check(fb.width == fused_width(UNIT_BATCH, 1, fb.total) and fb.fill == fb.total / fb.width,
+              f"{label}: a fused batch of {fb.total} lanes at width {fb.width}")
+    full = [fb for fb in batches if len(fb.units) == FUSE_MAX_UNITS]
+    check(all((fb.width, fb.total) == (UNIT_BATCH, FUSE_MAX_UNITS * FUSED_WORDS) for fb in full),
+          f"{label}: a full wave off width {UNIT_BATCH}")
+    shared = [i for i, fb in enumerate(batches) if {b"fused-stream-00"} <= {v.key for v in fb.units}]
+    check(len(shared) == 2, f"{label}: the shared ESSID rode {len(shared)} batches, want 2")
+    n = STREAM_UNITS * FUSED_WORDS
+    print(f"{label}: {STREAM_UNITS} units x {FUSED_WORDS} words in {wall:.3f} s = "
+          f"{n / wall:.1f} PMK/s; {len(batches)} fused batches (units, width, miss width, fill): "
+          f"{[(len(fb.units), fb.width, fb.miss_width, round(fb.fill, 4)) for fb in batches]}; "
+          f"K1 launches {launches}; per wave dispatch / collect s: "
+          f"{[(round(e['dispatch'], 3), round(e['collect'], 3)) for e in engines]} [{card}]",
+          flush=True)
+    return launches, wall
+
+
+def phase_fused_stream(card, rng):
+    """Phases 10c and 10d: the stream through ``MultiUnitExecutor`` (the
+    client's ``fused_executor``, unit_queue 4, fuse_max_units 8), then
+    through a fresh PMK store cold, fully warm (no K1) and half warm (a
+    second dict sharing half of each unit's words: ``mix_step`` runs).
+    Returns K1's launches per run."""
+    from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
+    from dwpa_tpu_torch.obs import MetricsRegistry
+
+    def client(label, store=None):
+        cfg = ClientConfig(base_url=STUB_URL, workdir=str(CLIENT_DIR / f"fused-{label}"),
+                           batch_size=UNIT_BATCH, device="cuda:0", unit_queue=UNIT_QUEUE,
+                           fuse_max_units=FUSE_MAX_UNITS,
+                           pmk_cache_dir=None if store is None else str(store))
+        return TpuCrackClient(cfg, registry=MetricsRegistry(),
+                              log=lambda msg: print(f"phase 10 {label}: {msg}", flush=True))
+
+    units = stream_units(rng)
+    launches = {}
+    c = client("stream")
+    launches["10c"], wall = run_stream(c, units, "phase 10c stream", card)
+    reg = c.registry
+    print(f"phase 10c metrics: dwpa_fused_units_per_batch count "
+          f"{reg.value('dwpa_fused_units_per_batch')}, last fill "
+          f"{reg.value('dwpa_fused_fill_fraction'):.4f} [{card}]", flush=True)
+
+    root = CLIENT_DIR / "pmkstore-10d"
+    shutil.rmtree(root, ignore_errors=True)
+    c = client("store", root)
+    half = []
+    for (line, essid, words, psk, plant) in units:
+        fresh = random_words(rng, FUSED_WORDS, 8, 20)
+        half.append((line, essid, [w if i % 2 == 0 or i == plant else fresh[i]
+                                   for i, w in enumerate(words)], psk, plant))
+    walls = {"10c": wall}
+    for label, stream, want in (("cold", units, None), ("warm", units, 0), ("half", half, None)):
+        key = f"10d {label}"
+        launches[key], walls[key] = run_stream(c, stream, f"phase 10d store {label}", card, want)
+    sample = [(essid, words[i]) for _, essid, words, _, _ in half
+              for i in rng.choice(FUSED_WORDS, STREAM_SAMPLE // STREAM_UNITS, replace=False)]
+    check(all(c.pmk_store.lookup(e, [w]) == [hashlib.pbkdf2_hmac("sha1", w, e, 4096, 32)]
+              for e, w in sample), "phase 10d: a store record differs from hashlib")
+    c.pmk_store.close()
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 10d store: {len(sample)} sampled records equal hashlib; cold / warm / half "
+          f"{walls['10d cold']:.3f} / {walls['10d warm']:.3f} / {walls['10d half']:.3f} s against "
+          f"{walls['10c']:.3f} s without the store; K1 launches {launches} [{card}]", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -1336,6 +1621,14 @@ def main():
     store_launches = phase_store_engine(dev, card)
     store_client_launches = phase_store_client(card, words, unit_pmk_s)
     phase_store_poison(dev, rng, card)
+    t10 = time.perf_counter()
+    fused_err, fused_ms = phase_fused_step(dev, rng, card)
+    err = max(err, fused_err)
+    fused_launches = {"10b": phase_small_units(dev, card)}
+    fused_launches.update(phase_fused_stream(card, rng))
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s; K1 through the fused step "
+          f"{fused_ms:.3f} ms per {UNIT_BATCH}-lane batch against {k1_ms:.3f} ms with one "
+          f"salt (phase 4); fused-path K1 launches {fused_launches} [{card}]", flush=True)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -1364,7 +1657,7 @@ def main():
     print(f"K2 bound: {n_full} threads x ({probe_loop} x {sm_probe.ITERS} + {probe_other}) SASS "
           f"instructions at the issue rate = {k2_bound_ms:.3f} ms; one launch "
           f"{sha1['seconds_1x'] * 1e3:.3f} ms [{card}]", flush=True)
-    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1379,7 +1672,8 @@ def main():
                              "mask (phase 8b)": mask_launches,
                              "mask client (phase 8c)": mask_client_launches,
                              "pmkstore (phase 9a)": store_launches,
-                             "pmkstore client (phase 9b)": store_client_launches},
+                             "pmkstore client (phase 9b)": store_client_launches,
+                             "fused (phase 10)": sum(fused_launches.values())},
     }, {
         "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,

@@ -20,8 +20,6 @@ DEFERRED = {
                        "the packed-dictionary cache (ROADMAP item DictCache)"),
     "dict_cache_max_bytes": ("--dict-cache-max-bytes",
                              "the packed-dictionary cache (ROADMAP item DictCache)"),
-    "unit_queue": ("--unit-queue", "unit fusion (ROADMAP later slice 5)"),
-    "fuse_max_units": ("--fuse-max-units", "unit fusion (ROADMAP later slice 5)"),
     "multihost": ("--multihost", "multi-host slices (ROADMAP later slice 10)"),
     "coordinator": ("--coordinator", "multi-host slices (ROADMAP later slice 10)"),
     "num_processes": ("--num-processes", "multi-host slices (ROADMAP later slice 10)"),
@@ -68,6 +66,12 @@ def build_parser():
                    default=256 * 1024 * 1024,
                    help="PMK store on-disk cap; oldest segments are "
                         "evicted beyond it (default 256 MiB)")
+    p.add_argument("--unit-queue", type=int, default=4,
+                   help="work units prefetched ahead of the device by "
+                        "the fused multi-unit executor")
+    p.add_argument("--fuse-max-units", type=int, default=8,
+                   help="max work units packed into one fused device "
+                        "batch (one salt-table row per ESSID)")
     p.add_argument("--device-streams", choices=("auto", "on", "off"),
                    default="auto",
                    help="'on' (independent per-device streams) is not "
@@ -122,6 +126,8 @@ def main(argv=None):
         nc=args.nc,
         feed_depth=args.feed_depth,
         feed_workers=args.feed_workers,
+        unit_queue=args.unit_queue,
+        fuse_max_units=args.fuse_max_units,
         device_streams=args.device_streams,
         max_tries=args.max_tries,
         backoff=args.backoff,

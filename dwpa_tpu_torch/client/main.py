@@ -32,8 +32,9 @@ device.  With ``pmk_cache_dir`` set, both passes run through a
 persistent PMK store (``dwpa_tpu_torch.pmkstore``).
 
 Single process, single device.  What the port does not do yet is refused
-loudly at construction, never approximated: unit fusion (ROADMAP later
-slice 5), forced device streams (slice 6) and a dict cache.
+loudly at construction, never approximated: forced device streams
+(ROADMAP later slice 6) and a dict cache.  ``fused_executor`` cracks a
+stream of small units as fused mixed-ESSID batches (``sched/``).
 """
 
 import base64
@@ -55,6 +56,8 @@ from ..oracle import m22000 as oracle
 from ..parallel.device import resolve_device
 from ..pmkstore import PMKStore
 from ..rules import apply_rules, parse_rules
+from ..sched import MultiUnitExecutor
+from ..sched.executor import UNITS_PER_BATCH_BUCKETS
 from ..utils.fsio import fsync_replace
 from .. import testing as synth
 from .challenge import CHALLENGE_PSK, challenge
@@ -109,8 +112,12 @@ class ClientConfig:
                                     # store cap; the oldest segments are
                                     # evicted beyond it
     dict_cache_dir: str = None      # not ported yet (ROADMAP "DictCache")
-    unit_queue: int = None          # unit fusion knobs: not ported yet
-    fuse_max_units: int = None      # (ROADMAP later slice 5)
+    unit_queue: int = 4             # --unit-queue: work units prefetched
+                                    # ahead of the device by the fused
+                                    # executor (dwpa_tpu_torch/sched)
+    fuse_max_units: int = 8         # --fuse-max-units: max work units
+                                    # packed into one fused device batch
+                                    # (one salt-table row per ESSID)
     device_streams: str = "auto"    # "on" is not ported yet (ROADMAP later
                                     # slice 6); "auto"/"off" run lockstep
                                     # on the one device
@@ -149,9 +156,6 @@ def _refuse_unported(cfg: ClientConfig):
         raise NotImplementedError(
             "dict_cache_dir: the packed-dictionary cache is not ported yet "
             "(ROADMAP item DictCache)")
-    if cfg.unit_queue is not None or cfg.fuse_max_units is not None:
-        raise NotImplementedError(
-            "unit fusion is not ported yet (ROADMAP later slice 5)")
     if cfg.device_streams == "on":
         raise NotImplementedError(
             "device_streams='on': per-device streams are not ported yet "
@@ -210,6 +214,17 @@ class TpuCrackClient:
         self._m_engine_retries = reg.counter(
             "dwpa_client_engine_retries_total",
             "work units retried in-process after an engine error")
+        # Fused-executor families are registered up front (idempotent by
+        # name — fused_executor() binds the same series) so a metrics
+        # scrape shows them at zero before the first fused wave runs.
+        reg.histogram(
+            "dwpa_fused_units_per_batch",
+            "Work units packed into each fused device batch",
+            buckets=UNITS_PER_BATCH_BUCKETS)
+        reg.gauge("dwpa_fused_fill_fraction",
+                  "Real-candidate fraction of the last fused batch")
+        reg.gauge("dwpa_unit_queue_depth",
+                  "Prefetched work units waiting in the executor queue")
         os.makedirs(config.workdir, exist_ok=True)
         self.dictdir = os.path.join(config.workdir, "dicts")
         os.makedirs(self.dictdir, exist_ok=True)
@@ -849,6 +864,18 @@ class TpuCrackClient:
             self.dictcount -= 1
             self._m_autotune.labels(direction="down").inc()
         self._m_dictcount.set(self.dictcount)
+
+    def fused_executor(self, units):
+        """A ``sched.MultiUnitExecutor`` bound to this client's device,
+        config, telemetry and PMK store — the multi-unit fused crack path
+        (``--unit-queue`` / ``--fuse-max-units``)."""
+        return MultiUnitExecutor(
+            units, batch_size=self.cfg.batch_size,
+            unit_queue=self.cfg.unit_queue,
+            fuse_max_units=self.cfg.fuse_max_units,
+            nc=self.cfg.nc, device=self.device, pmk_store=self.pmk_store,
+            registry=self.registry, tracer=self.tracer,
+            streams="auto" if self.cfg.device_streams == "auto" else False)
 
     #: In-process crack attempts per work unit before the unit is
     #: abandoned (attempt 1 at the configured batch, each retry attempt

@@ -26,6 +26,10 @@ Layout of the device work:
   misses; PBKDF2 runs on the misses only, the cached PMKs are gathered in
   around them (``parallel/step.py`` ``mix_step``), and the new PMKs are
   written back after the hits gate.
+- Several small work units fuse into one batch (``crack_fused``,
+  ``sched/fuse.py``): each lane carries its unit's row of a per-unit
+  salt table, PBKDF2 takes per-lane salts, every unit's verify runs over
+  the one PMK matrix, and each unit decodes only its own lane window.
 """
 
 import struct
@@ -223,21 +227,31 @@ def prep_net(h: hl.Hashline, nc: int = DEFAULT_NC, device=None) -> PreppedNet:
 # ---------------------------------------------------------------------------
 
 
-def _pmk_impl(pw_words, salt1, salt2):
+def _pmk_impl(pw_words, salt1, salt2, iterations=4096):
     """PBKDF2 batch -> int32[8, B]: the CUDA kernel for a CUDA batch, the
     plain torch version for a CPU batch, nothing else.
 
     ``pw_words`` is column-trimmed ([B, W], W in {4, 8, 16}): the host
     ships only the columns real candidates occupy and the zero tail of
     the HMAC key block is rebuilt by the PBKDF2 itself.  ``salt1``/
-    ``salt2`` are int32[16] (one ESSID) or int32[B, 16] (one per lane).
+    ``salt2`` are int32[16] (one ESSID) or int32[B, 16] (one per lane,
+    the mixed-ESSID mode of ``parallel.step.fused_pmk_step``).
+    ``iterations`` is 4096 for a PMK; tests hold the kernel to its plain
+    version at fewer.
     """
     if pw_words.is_cuda:
-        return pbkdf2_sha1_pmk_cuda(pw_words, salt1, salt2)
+        return pbkdf2_sha1_pmk_cuda(pw_words, salt1, salt2, iterations)
     if pw_words.device.type == "cpu":
-        return pbkdf2_sha1_pmk(pw_words, salt1, salt2)
+        return pbkdf2_sha1_pmk(pw_words, salt1, salt2, iterations)
     raise ValueError(f"no PBKDF2 for device {pw_words.device}")
 
+
+def pmk_kernel(pw_words, salt1, salt2, iterations=4096):
+    """``(pw_words int32[B, W], salt1 int32[16] | int32[B, 16], salt2
+    likewise) -> int32[8, B]``: the public PBKDF2 entry on tensors
+    (``_pmk_impl``), for callers that derive PMKs without verifying
+    them, such as a mixed-ESSID batch from ``sched.fuse.pack_salted_lanes``."""
+    return _pmk_impl(pw_words, salt1, salt2, iterations)
 
 
 def _pmk_key_block(pmk):
@@ -380,6 +394,23 @@ class _RuleWords:
         if out is None or not MIN_PSK_LEN <= len(out) <= MAX_PSK_LEN:
             return None  # rejected/out-of-range: column was zeroed on device
         return out
+
+
+class _ShiftedWords:
+    """pws view for one unit's lane window inside a fused batch: batch
+    column ``b`` maps to the unit's own candidate list at ``b - lo``;
+    columns outside the window (other units' lanes, padding) decode to
+    None so ``_decode`` skips them even if a demux mask ever slipped."""
+
+    __slots__ = ("words", "lo")
+
+    def __init__(self, words, lo):
+        self.words = words
+        self.lo = lo
+
+    def __getitem__(self, b):
+        i = b - self.lo
+        return self.words[i] if 0 <= i < len(self.words) else None
 
 
 class _MaskWords:
@@ -843,6 +874,8 @@ class M22000Engine:
             nf = found[ni]  # [V_max, B]
             for b in np.flatnonzero(nf.any(axis=0)):
                 psk = pws[b]
+                if psk is None:
+                    continue  # outside a fused unit's window (_ShiftedWords)
                 delta, endian = (0, None)
                 if net.keyver != 100:
                     delta, endian = net.variants[int(nf[:, b].argmax())]
@@ -1024,6 +1057,194 @@ class M22000Engine:
             mask_blocks(mask, self.batch_size, skip=skip, limit=limit,
                         custom=custom),
             on_batch=on_batch)
+
+    def crack_fused(self, parts, on_batch=None, max_units=8, tracer=None,
+                    on_fused=None) -> list:
+        """Crack several small work units as fused mixed-ESSID batches.
+
+        ``parts``: iterable of ``(essid, words[, count])`` — one entry
+        per (work unit, ESSID) pair, where ``words`` is the unit's raw
+        candidate list for that ESSID and ``count`` its global coverage
+        (defaults to ``len(words)``; the resume-framing analog of
+        ``feed.framing.Block.count``).  Units are buffered and packed
+        into full device batches (``sched.fuse.fuse_units``): up to
+        ``max_units`` units per batch, flushed early when the next part
+        would overflow ``batch_size`` or reuse a pending ESSID (one
+        salt-table row per ESSID per batch).  Oversize parts split into
+        engine-sized chunks and ride the same machinery.
+
+        Serially, every ~1k-word unit pads to the batch width and pays
+        the per-batch fixed costs alone; fused, eight such units share
+        one PBKDF2 launch and one hits-gate sync.
+
+        ``on_batch(essid, consumed, founds)`` fires per PART in stream
+        order — same at-least-once checkpoint seam as ``crack_blocks``,
+        keyed by ESSID so a multi-unit caller can demux.  ``on_fused``
+        (optional) receives each ``FusedBatch`` before dispatch — the
+        executor's fill/units-per-batch metrics hook.  ``tracer``
+        (optional ``obs.spans.SpanTracer``) wraps packing in
+        ``sched:fuse`` and sync/demux in ``sched:demux`` spans.
+        """
+        import collections
+        from contextlib import nullcontext
+
+        from ..sched.fuse import fuse_units
+
+        pipe_founds = []
+        inflight = collections.deque()  # dispatched records, oldest first
+        pending = []                    # buffered (essid, words, count)
+        raw = 0                         # candidate estimate of pending
+
+        def finish_one():
+            fb, outs, wb, _staged = inflight.popleft()
+            pipe_founds.extend(
+                self._collect_fused(fb, outs, wb, on_batch, tracer))
+
+        def flush():
+            nonlocal pending, raw
+            if not pending:
+                return
+            parts_now, pending, raw = pending, [], 0
+            with (tracer.span("sched:fuse") if tracer else nullcontext()):
+                fb = fuse_units(parts_now, self.batch_size, 1, max_units,
+                                store=self.pmk_store, salts=self._salts)
+            if on_fused is not None:
+                on_fused(fb)
+            if fb.total == 0:
+                # Every candidate was invalid: nothing to dispatch, but
+                # the units' coverage must still reach the checkpoint.
+                if on_batch is not None:
+                    for u in fb.units:
+                        on_batch(u.key, u.count, [])
+                return
+            inflight.append(self._dispatch_fused(fb))
+            if len(inflight) > self.PIPELINE_DEPTH:
+                finish_one()
+
+        for part in parts:
+            key, words = part[0], list(part[1])
+            count = part[2] if len(part) > 2 else len(words)
+            if not self.groups and not inflight:
+                break  # everything cracked; stop consuming the stream
+            if key not in self.groups:
+                # Unit for an already-cracked (or unknown) ESSID: consume
+                # it so the caller's checkpoint advances past it.
+                if on_batch is not None:
+                    on_batch(key, count, [])
+                continue
+            # Oversize unit: split into engine-sized chunks; each chunk
+            # fuses (alone — a full chunk flushes whatever is pending).
+            while len(words) > self.batch_size:
+                chunk, words = words[:self.batch_size], words[self.batch_size:]
+                count -= len(chunk)
+                flush()
+                pending, raw = [(key, chunk, len(chunk))], len(chunk)
+                flush()
+            if (raw + len(words) > self.batch_size
+                    or any(k == key for k, _, _ in pending)
+                    or len(pending) >= max_units):
+                flush()
+            pending.append((key, words, count))
+            raw += len(words)
+        flush()
+        while inflight:
+            finish_one()
+        return pipe_founds
+
+    def _dispatch_fused(self, fb):
+        """Launch one fused batch (no host sync): ONE per-lane-salt
+        PBKDF2 over the compacted miss lanes (``fused_pmk_step`` — the
+        ``unit_id`` gather resolves each lane's salt on the device), the
+        ``mix_step`` gather when the PMK store contributed hits, then
+        every live unit's verify over the SAME [8, W] PMK matrix.  A
+        unit's verify sees other units' lanes too — their PMKs were
+        derived under a different ESSID, so they cannot match (and
+        ``_collect_fused`` masks the columns anyway).  An all-hit batch
+        launches no PBKDF2.  The record holds every staged tensor until
+        ``_collect_fused`` has synced."""
+        from ..parallel.step import fused_pmk_step, mix_step
+
+        t0 = time.perf_counter()
+        wb = None
+        if fb.nmiss == 0 and fb.cached is not None:
+            pmk = self._h2d(fb.cached)
+            staged = (pmk,)
+        else:
+            w = _trim_cols(int(fb.miss_lens.max()))
+            staged = tuple(self._h2d(a) for a in (
+                np.ascontiguousarray(fb.miss_rows[:, :w]), fb.unit_id,
+                fb.table1, fb.table2))
+            pmk_miss = fused_pmk_step(*staged)
+            entries = [(u.key, u.mlo, u.nmiss, u.miss_words)
+                       for u in fb.units if u.nmiss]
+            wb = (pmk_miss, entries)
+            pmk = pmk_miss
+            if fb.idx is not None:
+                cached, idx = self._h2d(fb.cached), self._h2d(fb.idx)
+                staged += (cached, idx)
+                pmk = mix_step(pmk_miss, cached, idx)
+        outs = []
+        for u in fb.units:
+            group = self._full.get(u.key)
+            if group is None:  # group cracked out from under the stream
+                outs.append((u, None, None))
+                continue
+            outs.append((u, group, self._step_for(u.key).verify(pmk)))
+        self.stage_times["dispatch"] += time.perf_counter() - t0
+        return fb, outs, wb, staged
+
+    def _collect_fused(self, fb, outs, wb, on_batch, tracer) -> list:
+        """Sync + demux one fused batch: every unit's hit scalar comes
+        back in ONE fetch; a unit with hits has its found matrix masked
+        down to its OWN lane window ``[lo, lo + nvalid)`` before decode
+        (a hit in unit A must never surface as unit B's find — the
+        columns outside the window belong to other units), cracked nets
+        are pruned, new PMKs go back to the store in one ``put_many``,
+        and ``on_batch`` fires per unit in layout order."""
+        from contextlib import nullcontext
+
+        t0 = time.perf_counter()
+        founds = []
+        by_unit = {id(u): [] for u, _, _ in outs}
+        live = {id(n.line) for g in self.groups.values() for n in g}
+        with (tracer.span("sched:demux") if tracer else nullcontext()):
+            real = [(u, g, out) for u, g, out in outs if out is not None]
+            hits = torch.stack([out[0] for _, _, out in real]).tolist() if real else []
+            for h, (u, group, out) in zip(hits, real):
+                if h == 0:
+                    continue
+                _, found_dev, pmk_dev = out
+                found = found_dev.cpu().numpy().copy()  # writable, not the step's
+                # Demux mask: zero every column outside this unit's lane
+                # window (other units' candidates + padding).
+                found[:, :, :u.lo] = False
+                found[:, :, u.lo + u.nvalid:] = False
+                cols = np.flatnonzero(found.any(axis=(0, 1)))
+                if not len(cols):
+                    continue
+                idx = torch.from_numpy(cols).to(pmk_dev.device)
+                pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
+                slot = {int(b): i for i, b in enumerate(cols)}
+                new = self._decode(group, found, lambda b: pmk_cols[:, slot[b]],
+                                   _ShiftedWords(u.words, u.lo), live)
+                by_unit[id(u)].extend(new)
+                founds.extend(new)
+            for f in founds:
+                self.remove(f)
+            if wb is not None and self.pmk_store is not None:
+                # Store write-back (consumer thread, after the gate
+                # fetch): each unit's slice of the fused miss PMK matrix
+                # lands under its own ESSID, one store call per batch.
+                pmk_miss, entries = wb
+                pmk_host = to_numpy(pmk_miss[:, :fb.nmiss])
+                self.pmk_store.put_many(
+                    (key, miss_words, pmk_host[:, mlo:mlo + nm])
+                    for key, mlo, nm, miss_words in entries)
+        if on_batch is not None:
+            for u in fb.units:
+                on_batch(u.key, u.count, by_unit[id(u)])
+        self.stage_times["collect"] += time.perf_counter() - t0
+        return founds
 
     def _rules_flush(self, ctx, batch, account, push, skip):
         """One base-word flush through the device-expansion seam.

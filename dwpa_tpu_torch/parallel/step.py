@@ -27,6 +27,21 @@ def pmk_step(pw_words, salt1, salt2):
     return m._pmk_impl(pw_words, salt1, salt2)
 
 
+def fused_pmk_step(pw_words, unit_id, table1, table2, iterations=4096):
+    """``(pw_words int32[Wm, w], unit_id int32[Wm], table1 int32[U, 16],
+    table2 int32[U, 16]) -> pmk int32[8, Wm]``: the mixed-ESSID fused
+    PBKDF2 step.
+
+    Each lane gathers its OWN salt blocks from the per-unit tables on the
+    device (``index_select`` gives contiguous [Wm, 16] rows), and the
+    PBKDF2 kernel runs in its per-lane-salt mode — the upload for mixing
+    ESSIDs in one batch is 4 bytes a lane of ``unit_id``, not 128 bytes a
+    lane of salt blocks.  ``iterations`` is 4096 for a PMK.
+    """
+    return m._pmk_impl(pw_words, table1.index_select(0, unit_id),
+                       table2.index_select(0, unit_id), iterations)
+
+
 def _gate(found, mask):
     """found bool[N, V, B], mask bool[N] -> (exact hit count, found).
 

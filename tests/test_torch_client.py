@@ -614,10 +614,11 @@ def test_pass1_candidates_match_jax_client(server, tmp_path):
 
 def test_unported_features_refused(server, tmp_path):
     for kw, slice_no in ((dict(dict_cache_dir=str(tmp_path / "d")), "DictCache"),
-                         (dict(unit_queue=4), "slice 5"),
                          (dict(device_streams="on"), "slice 6")):
         with pytest.raises(NotImplementedError, match=slice_no):
             _client(server, tmp_path, **kw)
+    # unit fusion is ported: its knobs construct a client
+    assert _client(server, tmp_path, unit_queue=2, fuse_max_units=4).cfg.unit_queue == 2
 
 
 def test_client_cli_refuses_deferred_flags():

@@ -1,6 +1,6 @@
 """The port on a CUDA device: the PBKDF2 kernel, the engine, the SM
-probe kernel, the rule interpreter, the mask generator and the PMK
-store's mixed blocks.
+probe kernel, the rule interpreter, the mask generator, the PMK
+store's mixed blocks and mixed-ESSID unit fusion.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -199,3 +199,68 @@ def test_mixed_store_block_through_the_kernel(cuda_device, tmp_path):  # noqa: F
     assert miss_width(1024, 1, 1024 - len(seeded)) == 1024  # 682 misses: the full width
     assert store.lookup(essid, words) == [hashlib.pbkdf2_hmac("sha1", w, essid, 4096, 32)
                                           for w in words]
+
+
+def _fused_units(tfx):
+    """Eight units of the five kinds in turn, each with its own ESSID and
+    PSK planted among 100 seeded words."""
+    kinds = [dict(keyver=2), None, dict(keyver=2, nc_delta=-2, endian="BE"),
+             dict(keyver=1), dict(keyver=3)]
+    rng = np.random.default_rng(29)
+    lines, parts = [], []
+    for u in range(8):
+        essid, psk = b"card-fused-%d" % u, b"fused-psk-%03d" % u
+        kind = kinds[u % 5]
+        lines.append(tfx.make_pmkid_line(psk, essid, seed=f"cf{u}") if kind is None
+                     else tfx.make_eapol_line(psk, essid, seed=f"cf{u}", **kind))
+        words = [bytes(rng.integers(97, 123, int(k), dtype=np.uint8))
+                 for k in rng.integers(8, 20, 100)]
+        words.insert(int(rng.integers(0, 100)), psk)
+        parts.append((essid, words))
+    return lines, parts
+
+
+@pytest.mark.gpu
+def test_crack_fused_on_the_card_matches_serial(cuda_device):  # noqa: F811
+    """Eight units of mixed kinds fused into one 1024-lane batch on
+    cuda:0: one K1 launch, every planted PSK found, and the finds equal
+    the serial path's (one engine per unit)."""
+    from dwpa_tpu_torch import testing as tfx
+
+    lines, parts = _fused_units(tfx)
+    eng = tm.M22000Engine(lines, batch_size=1024, device=cuda_device)
+    before = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    widths = []
+    fused = eng.crack_fused(parts, on_fused=lambda fb: widths.append(fb.width))
+    assert pbkdf2_cuda.LAUNCHES == before[0] + 1 and pbkdf2.CALLS == before[1]
+    assert widths == [1024]
+    serial = []
+    for line, (_, words) in zip(lines, parts):
+        serial += tm.M22000Engine([line], batch_size=1024, device=cuda_device).crack(words)
+
+    def key(f):
+        return (f.line.raw, f.psk, f.nc, f.endian, f.pmk)
+
+    assert sorted(map(key, fused)) == sorted(map(key, serial))
+    assert sorted(f.psk for f in fused) == [b"fused-psk-%03d" % u for u in range(8)]
+    assert {(f.nc, f.endian) for f in fused} >= {(-2, "BE")}
+
+
+@pytest.mark.gpu
+def test_fused_pmk_step_on_the_card_matches_plain(cuda_device):  # noqa: F811
+    """The unit-table gather + K1 on cuda:0 equals the plain PBKDF2 at 2
+    iterations, every row trim."""
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.parallel.step import fused_pmk_step
+    from dwpa_tpu_torch.sched import fuse_units
+
+    _, parts = _fused_units(tfx)
+    fb = fuse_units([(e, w, len(w)) for e, w in parts], 1024, 1, 8)
+    for w in (4, 8, 16):
+        args = [to_torch(a, cuda_device) for a in (
+            np.ascontiguousarray(fb.miss_rows[:, :w]), fb.unit_id, fb.table1, fb.table2)]
+        before = pbkdf2_cuda.LAUNCHES
+        got = fused_pmk_step(*args, iterations=2)
+        assert pbkdf2_cuda.LAUNCHES == before + 1
+        t1, t2 = (t.index_select(0, args[1]) for t in args[2:])
+        assert torch.equal(got, pbkdf2.pbkdf2_sha1_pmk(args[0], t1, t2, iterations=2))

@@ -47,7 +47,7 @@ def salt_essid(salt_block) -> bytes:
     return bo.words_to_bytes_be(words)[:n]
 
 
-def hashlib_pmk(pw, salt1, salt2):
+def hashlib_pmk(pw, salt1, salt2, iterations=4096):
     """Drop-in for ``models.m22000._pmk_impl`` on the CPU: hashlib PMKs.
 
     The plain torch PBKDF2 at 4096 iterations costs minutes on the CPU,
@@ -61,7 +61,7 @@ def hashlib_pmk(pw, salt1, salt2):
     for b, row in enumerate(rows):
         s1 = salt1 if salt1.dim() == 1 else salt1[b]
         psk = bo.words_to_bytes_be(row).rstrip(b"\x00")
-        pmk = hashlib.pbkdf2_hmac("sha1", psk, salt_essid(s1), 4096, 32)
+        pmk = hashlib.pbkdf2_hmac("sha1", psk, salt_essid(s1), iterations, 32)
         out[:, b] = bo.be_words(pmk)
     return to_torch(out, pw.device)
 
