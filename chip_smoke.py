@@ -75,6 +75,22 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    fuse_max_units 8): every PSK found, one K1 launch per fused batch;
    (d) that stream through a fresh PMK store cold, fully warm (no K1) and
    half warm (``mix_step``), the store's sampled records held to hashlib.
+11. the packed-dictionary cache: (a) the JAX bench's ``dict_cache`` feed
+   legs (a 200,000-word gz dict through ``DictFeedSource`` and a
+   two-producer ``CandidateFeed``, cold then warm: words/s, the cache's
+   bytes, the warm words equal to the cold ones word for word); (b) its
+   e2e legs (one PMKID net, 2 x 131072 words with the PSK in the last
+   batch, through ``crack_blocks`` and ``host_packer()``, cold then warm:
+   the same founds, per-batch counts and K1 launches; a mid-stream resume
+   skip accounted alike, the warm one with no gunzip; K1 exact against the
+   plain version at 2 iterations on a batch materialized from the cache);
+   (c) phase 6's unit through ``run()`` with ``dict_cache_dir``, cold then
+   warm (hit blocks only, no ``DictStream`` in pass 2, the cold run's
+   resume stamps), then a warm run crashed after the 4th pass-2
+   checkpoint and a fresh client's replay by an index seek; (d) phase 7c's
+   rules unit, its dict cut to one block and without the pass-1 cracked
+   dict, cold then warm from ``.rbase`` (the same finds, ``rules:expand``
+   timed in both).
 
 It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -149,6 +165,10 @@ STREAM_UNITS = 32                       # 10c/10d: the executor's stream
 UNIT_QUEUE = 4
 FUSE_MAX_UNITS = 8
 STREAM_SAMPLE = 64                      # 10d: store records held to hashlib per run
+DCACHE_FEED_WORDS = 200_000             # 11a: bench.py:398 dict_cache, the feed-only legs
+DCACHE_E2E_BATCHES = 2                  # 11b: bench.py:447, the e2e legs at 2 x 131072
+DCACHE_RESUME = UNIT_BATCH + 12345      # 11b: a mid-stream resume skip
+RBASE_UNIT_WORDS = UNIT_BATCH           # 11d: 7c's base dict cut to one block for time
 
 
 def check(cond, msg):
@@ -479,7 +499,7 @@ def check_founds(founds, lines, what, psks=None):
 
 
 def make_client(server, workdir, feed_workers, label, phase="phase 6", rule_workers=0,
-                pmk_cache_dir=None):
+                pmk_cache_dir=None, dict_cache_dir=None):
     """A ``TpuCrackClient`` for the stub server's unit at full batch, with
     its own registry; returns (client, registry)."""
     from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
@@ -489,7 +509,8 @@ def make_client(server, workdir, feed_workers, label, phase="phase 6", rule_work
     cfg = ClientConfig(base_url=STUB_URL, workdir=str(workdir), batch_size=UNIT_BATCH,
                        max_work_units=1, feed_workers=feed_workers, device="cuda:0",
                        rule_workers=rule_workers,
-                       pmk_cache_dir=None if pmk_cache_dir is None else str(pmk_cache_dir))
+                       pmk_cache_dir=None if pmk_cache_dir is None else str(pmk_cache_dir),
+                       dict_cache_dir=None if dict_cache_dir is None else str(dict_cache_dir))
     return TpuCrackClient(cfg, api=server, registry=reg,
                           log=lambda msg: print(f"{phase} {label} client: {msg}", flush=True)), reg
 
@@ -511,7 +532,8 @@ def report_unit(client, reg, label, unit_pmk_s, card, phase="phase 6"):
 
 
 def phase_client(card, words, unit_pmk_s):
-    """Phase 6: the volunteer loop on the card against the stub server."""
+    """Phase 6: the volunteer loop on the card against the stub server.
+    Returns K1's launches in the first run() and its pass-2 PMK/s."""
     from dwpa_tpu_torch import native
     from dwpa_tpu_torch.models import m22000 as m
     from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
@@ -564,7 +586,7 @@ def phase_client(card, words, unit_pmk_s):
           f"PBKDF2 calls {plain_calls}, native pack calls {native_calls} by thread "
           f"{dict(packers)}; potfile {len(lines)} lines, resume cleared, outbox empty [{card}]",
           flush=True)
-    report_unit(client, reg, "feed_workers=1", unit_pmk_s, card)
+    pass2_pmk_s = report_unit(client, reg, "feed_workers=1", unit_pmk_s, card)
 
     # -- crash after the 4th pass-2 checkpoint, then a fresh client --------
     server = Server(blob, dhash)
@@ -612,7 +634,7 @@ def phase_client(card, words, unit_pmk_s):
     check_founds(inline.last_result.founds, lines, "phase 6 inline")
     report_unit(inline, reg, "feed_workers=0", unit_pmk_s, card)
     shutil.rmtree(CLIENT_DIR, ignore_errors=True)
-    return launches
+    return launches, pass2_pmk_s
 
 
 def phase_expand(dev, rng, card):
@@ -727,12 +749,12 @@ def phase_rules_engine(dev, rng, card, expand_ms):
     return launches, err
 
 
-def rules_unit(rng):
+def rules_unit(rng, n_words=RULES_UNIT_WORDS):
     """Phase 7c's unit: phase 6's five nets, each with its own PSK made by
     a different rule of the first 16 of wpa.rule from a base word planted
-    in the dict's second block.  Returns the lines (each with its NC delta
-    and endian), their PSKs, the dict's words, the rules text and the
-    pass-1 ``cracked.txt.gz`` words (none of them a PSK)."""
+    in the dict's last block.  Returns the lines (each with its NC delta
+    and endian), their PSKs, the dict's ``n_words`` words, the rules text
+    and the pass-1 ``cracked.txt.gz`` words (none of them a PSK)."""
     from dwpa_tpu_torch.rules import wpa_rules
 
     rules = wpa_rules()[:RULES_UNIT_RULES]
@@ -740,9 +762,10 @@ def rules_unit(rng):
     bases = [b"rules7c-net%d-base" % k for k in range(5)]
     psks = [rules[r].apply(b) for r, b in zip(picks, bases)]
     lines = five_kind_lines(psks, "r")
-    words = random_words(rng, RULES_UNIT_WORDS, 8, 20)
+    words = random_words(rng, n_words, 8, 20)
+    last = min(n_words, UNIT_BATCH)
     for k, b in enumerate(bases):
-        words[UNIT_BATCH + (k + 1) * UNIT_BATCH // 6] = b
+        words[n_words - last + (k + 1) * last // 6] = b
     cracked = random_words(rng, RULES_CRACKED_WORDS, 8, 20)
     return lines, psks, words, "\n".join(r.text for r in rules) + "\n", cracked
 
@@ -1555,6 +1578,358 @@ def phase_fused_stream(card, rng):
     return launches
 
 
+def write_dict(root, words):
+    """A gz dict under ``root`` named by its md5, as the client stores
+    server dicts; returns the ``(path, dhash)`` unit."""
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    dhash = hashlib.md5(blob).hexdigest()
+    path = Path(root) / f"{dhash}.gz"
+    path.write_bytes(blob)
+    return str(path), dhash
+
+
+def count_streams():
+    """Count the ``DictStream`` passes (gunzips) the feed sources open;
+    returns (opened paths, restore)."""
+    from dwpa_tpu_torch.gen import dicts
+
+    real, opened = dicts.DictStream, []
+
+    class Counting(real):
+        def __iter__(self):
+            opened.append(self.source)
+            return super().__iter__()
+
+    dicts.DictStream = Counting
+    return opened, lambda: setattr(dicts, "DictStream", real)
+
+
+def drain_dict(units, cache, prepack=None, skip=0, engine=None, on_batch=None, keep=None):
+    """bench.py:427's drain: ``DictFeedSource`` through ``CandidateFeed``
+    with two producers, into ``engine.crack_blocks`` or counted (blocks
+    appended to ``keep``).  Returns (founds or words, words skipped)."""
+    from dwpa_tpu_torch.feed import CandidateFeed, DictFeedSource
+    from dwpa_tpu_torch.obs import MetricsRegistry
+
+    src = DictFeedSource(units, batch_size=UNIT_BATCH, cache=cache, skip=skip, name="dcache")
+    feed = CandidateFeed(None, batch_size=UNIT_BATCH, frames=src, producers=2, prepack=prepack,
+                         registry=MetricsRegistry(), name="dcache")
+    try:
+        if engine is not None:
+            return engine.crack_blocks(feed, on_batch=on_batch), src.skipped
+        n = 0
+        for blk in feed:
+            n += blk.count
+            if keep is not None:
+                keep.append(blk)
+        return n, src.skipped
+    finally:
+        feed.close()
+
+
+def cache_blocks(reg):
+    """(hit, miss) blocks of a dict cache's registry."""
+    return tuple(int(reg.value(f"dwpa_dictcache_{k}_blocks_total") or 0) for k in ("hit", "miss"))
+
+
+def phase_dict_cache_feed(card):
+    """Phase 11a: the JAX bench's dict_cache feed-only legs (bench.py:398):
+    a 200,000-word gz dict through ``DictFeedSource`` + ``CandidateFeed``
+    with two producers, cold (gunzip, native pack, the cache write) then
+    warm (mmap'd packed chunks, materialized on the producers).  Words/s of
+    each, the cache's bytes, and the warm stream held to the cold one word
+    for word."""
+    from dwpa_tpu_torch.feed import DictCache
+    from dwpa_tpu_torch.native import pack_candidates_fast
+    from dwpa_tpu_torch.obs import MetricsRegistry
+
+    root = CLIENT_DIR / "dcache-11a"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    words = [b"dcachebench-%09d" % i for i in range(DCACHE_FEED_WORDS)]
+    units = [write_dict(root, words)]
+    reg = MetricsRegistry()
+    cache = DictCache(str(root / "dc"), registry=reg)
+    rate, blocks = {}, {}
+    for label in ("cold", "warm"):
+        blocks[label] = []
+        t0 = time.perf_counter()
+        n, _ = drain_dict(units, cache, keep=blocks[label])
+        rate[label] = n / (time.perf_counter() - t0)
+        check(n == DCACHE_FEED_WORDS, f"11a {label}: {n} words")
+    nblk = len(blocks["cold"])
+    check(cache_blocks(reg) == (nblk, nblk), f"11a hit/miss blocks {cache_blocks(reg)}")
+    cold, warm = blocks["cold"], blocks["warm"]
+    check([(b.offset, b.count) for b in cold] == [(b.offset, b.count) for b in warm],
+          "11a: warm block geometry differs from cold")
+    for c, w in zip(cold, warm):
+        rows, lens, nv = w.prep
+        check(w.words == [] and nv == len(c.words), f"11a: warm block at {w.offset}: {nv} rows")
+        flat = rows[:nv].astype(">u4").tobytes()
+        got = [flat[64 * i:64 * i + int(n)] for i, n in enumerate(lens)]
+        check(got == c.words, f"11a: warm words differ from cold at block {w.offset}")
+        packed = pack_candidates_fast(c.words, 8, 63, capacity=UNIT_BATCH)
+        check(np.array_equal(packed[0], rows), f"11a: warm rows differ from the packer's at {w.offset}")
+    nbytes = cache._bytes_used()
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 11a dict cache feed: {DCACHE_FEED_WORDS} words in {nblk} blocks of {UNIT_BATCH}, "
+          f"two producers; cold {rate['cold']:.1f} words/s, warm {rate['warm']:.1f} words/s, "
+          f"warm / cold {rate['warm'] / rate['cold']:.3f}x; cache {nbytes} bytes "
+          f"({nbytes / DCACHE_FEED_WORDS:.1f} a word); warm words equal cold word for word, warm "
+          f"rows equal the native packer's [{card}]", flush=True)
+
+
+def phase_dict_cache_engine(dev, card):
+    """Phase 11b: the JAX bench's dict_cache e2e legs (bench.py:447): a
+    planted-PSK dict of 2 x 131072 words through ``crack_blocks`` with
+    ``host_packer()``, cold then warm: the founds, per-batch consumed
+    counts and K1 launches identical; a mid-stream resume skip accounted
+    identically cold and warm (the warm one opens no gunzip); K1 held to
+    the plain version, exactly, at 2 iterations on a batch materialized
+    from the warm cache.  Returns K1's launches in the cold and warm legs."""
+    import torch
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.feed import DictCache, DictFeedSource
+    from dwpa_tpu_torch.models.m22000 import M22000Engine, _trim_cols
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+
+    root = CLIENT_DIR / "dcache-11b"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    psk, essid = b"benchpass1", b"bench-dcache"
+    n2 = DCACHE_E2E_BATCHES * UNIT_BATCH
+    units = [write_dict(root, [b"dcache-e2e-%09d" % i for i in range(n2 - 1)] + [psk])]
+    line = tfx.make_pmkid_line(psk, essid, seed="dcache-e2e")
+    M22000Engine([line], batch_size=UNIT_BATCH, device=dev).crack_batch(
+        [b"dcachewarm0-%07d" % i for i in range(UNIT_BATCH)])       # plain-path warm-up
+    reg = MetricsRegistry()
+    cache = DictCache(str(root / "dc"), registry=reg)
+
+    def crack(cache_, skip=0):
+        eng = M22000Engine([line], batch_size=UNIT_BATCH, device=dev)
+        consumed = []
+        opened, restore = count_streams()
+        torch.cuda.synchronize()
+        pbkdf2_cuda.LAUNCHES = 0
+        pbkdf2.CALLS = 0
+        try:
+            t0 = time.perf_counter()
+            founds, skipped = drain_dict(units, cache_, prepack=eng.host_packer(), skip=skip,
+                                         engine=eng, on_batch=lambda c, f: consumed.append(c))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        check(pbkdf2.CALLS == 0, "11b ran the plain PBKDF2")
+        return ([f.psk for f in founds], consumed, pbkdf2_cuda.LAUNCHES, skipped,
+                len(opened)), wall
+
+    cold, cold_s = crack(cache)
+    warm, warm_s = crack(cache)
+    check(cold[0] == [psk] and cold[:3] == warm[:3],
+          f"11b cold {cold[:3]} against warm {warm[:3]}")
+    check(sum(cold[1]) == n2 and (cold[4], warm[4]) == (1, 0),
+          f"11b: consumed {sum(cold[1])}, gunzip passes cold {cold[4]} warm {warm[4]}")
+    check(cache_blocks(reg) == (DCACHE_E2E_BATCHES, DCACHE_E2E_BATCHES),
+          f"11b hit/miss blocks {cache_blocks(reg)}")
+    rcold, _ = crack(None, DCACHE_RESUME)
+    rwarm, _ = crack(cache, DCACHE_RESUME)
+    check(rcold[:4] == rwarm[:4] and rcold[0] == [psk] and rcold[3] == DCACHE_RESUME
+          and sum(rcold[1]) == n2 - DCACHE_RESUME and rwarm[4] == 0,
+          f"11b resume at {DCACHE_RESUME}: cold {rcold[1:]} warm {rwarm[1:]}")
+
+    # K1 against the plain version on a batch materialized from the cache.
+    blk = next(iter(DictFeedSource(units, UNIT_BATCH, cache=cache)))
+    rows, lens, nv = blk.prep.materialize()
+    w = _trim_cols(int(lens.max()))
+    pw = torch.from_numpy(np.ascontiguousarray(rows[:, :w]).view(np.int32)).to(dev)
+    step = M22000Engine([line], batch_size=UNIT_BATCH, device=dev)._step_for(essid)
+    got = pbkdf2_cuda.pbkdf2_sha1_pmk_cuda(pw, step.salt1, step.salt2, iterations=2)
+    ref = pbkdf2.pbkdf2_sha1_pmk(pw, step.salt1, step.salt2, iterations=2)
+    err = int((got.long() - ref.long()).abs().max())
+    check(nv == UNIT_BATCH and torch.equal(got, ref), "11b: K1 != plain on the warm batch")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 11b dict cache e2e: {n2} words, PSK in the last batch; cold {cold_s:.3f} s = "
+          f"{n2 / cold_s:.1f} PMK/s, warm {warm_s:.3f} s = {n2 / warm_s:.1f} PMK/s (warm / cold "
+          f"{cold_s / warm_s:.3f}x); founds, consumed {cold[1]} and K1 launches {cold[2]} equal "
+          f"cold and warm; resume skip {DCACHE_RESUME}: skipped {rwarm[3]}, consumed {rwarm[1]} "
+          f"equal cold and warm, the warm one with {rwarm[4]} gunzip passes; K1 vs plain on a "
+          f"[{UNIT_BATCH}, {w}] warm batch exact at 2 iterations, max_abs_err={err} [{card}]",
+          flush=True)
+    return cold[2] + warm[2]
+
+
+def pass2_stamps(client):
+    """Record the resume stamps a client writes once pass 2 has begun."""
+    stamps, real_write, real_fetch = [], client._write_resume, client._fetch_pass2_paths
+    started = []
+
+    def fetch(work):
+        started.append(True)
+        return real_fetch(work)
+
+    def write(work):
+        real_write(work)
+        if started and "_progress" in work:
+            stamps.append(work["_progress"]["done"])
+
+    client._fetch_pass2_paths, client._write_resume = fetch, write
+    return stamps
+
+
+def run_counted(client):
+    """``client.run()`` with K1's launches and the feed's gunzip passes
+    counted; returns (units done, K1 launches, gunzip passes, wall s)."""
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+
+    opened, restore = count_streams()
+    pbkdf2_cuda.LAUNCHES = 0
+    pbkdf2.CALLS = 0
+    try:
+        t0 = time.perf_counter()
+        done = client.run()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    check(pbkdf2.CALLS == 0, f"the client ran the plain PBKDF2 {pbkdf2.CALLS} times")
+    return done, pbkdf2_cuda.LAUNCHES, len(opened), wall
+
+
+def found_keys(founds):
+    return sorted((f.line.raw, f.psk, f.nc, f.endian, f.pmk) for f in founds)
+
+
+def phase_dict_cache_client(card, words, unit_pmk_s, phase6_p2):
+    """Phase 11c: phase 6's unit through ``run()`` with ``dict_cache_dir``,
+    cold then warm: the warm pass 2 serves only hit blocks and opens no
+    ``DictStream``, with the cold run's resume stamps and finds; pass-2
+    PMK/s beside phase 6's.  Then a warm run crashed after the 4th pass-2
+    checkpoint, and a fresh client's replay by an index-seek skip (no
+    gunzip), accepted with the same finds.  Returns K1's launches."""
+    lines = unit_lines()
+    raw = [ln for ln, _ in lines]
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    dhash = hashlib.md5(blob).hexdigest()
+    Server = stub_server(raw)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    phase = "phase 11c"
+    dcdir = CLIENT_DIR / "dictcache-11c"
+    nblk = UNIT_WORDS // UNIT_BATCH
+    runs, total = {}, 0
+    for label in ("cold", "warm"):
+        server = Server(blob, dhash)
+        client, reg = make_client(server, CLIENT_DIR / f"dcache-{label}", 1, label, phase,
+                                  dict_cache_dir=dcdir)
+        stamps = pass2_stamps(client)
+        done, launches, opened, wall = run_counted(client)
+        total += launches
+        res = client.last_result
+        check(done == 1 and res.accepted and all(ok for _, ok in server.verdicts[-1]),
+              f"11c {label}: unit not accepted")
+        check_founds(res.founds, lines, f"{phase} {label}")
+        want = (0, nblk) if label == "cold" else (nblk, 0)
+        check(cache_blocks(reg) == want and opened == int(label == "cold"),
+              f"11c {label}: hit/miss blocks {cache_blocks(reg)}, gunzip passes {opened}")
+        runs[label] = (found_keys(res.founds), stamps, launches)
+        print(f"{phase} {label}: accepted with {len(res.founds)}/5; K1 launches {launches}; "
+              f"hit/miss blocks {cache_blocks(reg)}; pass-2 gunzip passes {opened}; cache bytes "
+              f"{int(reg.value('dwpa_dictcache_bytes'))}; run() {wall:.3f} s [{card}]", flush=True)
+        p2 = report_unit(client, reg, label, unit_pmk_s, card, phase)
+        runs[label] += (p2,)
+    check(runs["cold"][:3] == runs["warm"][:3],
+          "11c: warm founds, stamps or K1 launches differ from cold")
+
+    server = Server(blob, dhash)
+    crashed, _ = make_client(server, CLIENT_DIR / "dcache-crash", 1, "crashing", phase,
+                             dict_cache_dir=dcdir)
+    stamps = pass2_stamps(crashed)
+    real_write = crashed._write_resume
+
+    def write_then_crash(work):
+        real_write(work)
+        if len(stamps) == 4:
+            raise Crash
+
+    crashed._write_resume = write_then_crash
+    try:
+        run_counted(crashed)
+        check(False, "the crashing client finished its unit")
+    except Crash:
+        pass
+    checkpointed = json.loads(Path(crashed.resume_path).read_text())["_progress"]["done"]
+    check(stamps == runs["cold"][1][:4] and checkpointed == stamps[-1],
+          f"11c crash: stamps {stamps} against cold {runs['cold'][1][:4]}")
+    revived, reg = make_client(server, CLIENT_DIR / "dcache-crash", 1, "revived", phase,
+                               dict_cache_dir=dcdir)
+    done, launches, opened, wall = run_counted(revived)
+    total += launches
+    skipped = int(reg.value("dwpa_client_resume_skipped_total") or 0)
+    res = revived.last_result
+    check(done == 1 and res.accepted and server.issued == 1
+          and all(ok for _, ok in server.verdicts[-1]), "11c: the replayed unit was not accepted")
+    check(skipped == checkpointed and opened == 0 and cache_blocks(reg) == (nblk - 4, 0)
+          and found_keys(res.founds) == runs["cold"][0],
+          f"11c replay: skipped {skipped} of {checkpointed}, gunzip passes {opened}, "
+          f"hit/miss {cache_blocks(reg)}")
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    print(f"{phase} crash and resume: crashed after pass-2 stamps {stamps} (the cold run's); the "
+          f"fresh client skipped {skipped} by an index seek with {opened} gunzip passes, served "
+          f"{cache_blocks(reg)[0]} hit blocks, tried {res.candidates_tried}, found the same 5 and "
+          f"was accepted in {wall:.3f} s; pass-2 PMK/s cold {runs['cold'][3] or 0.0:.1f}, warm "
+          f"{runs['warm'][3] or 0.0:.1f}, phase 6 {phase6_p2 or 0.0:.1f} [{card}]", flush=True)
+    return total
+
+
+def phase_rbase_client(card, rng, unit_pmk_s):
+    """Phase 11d: phase 7c's rules unit (five nets, the first 16 rules of
+    wpa.rule), its base dict cut to one 131072-word block and no pass-1
+    cracked dict, through ``run()`` with ``dict_cache_dir``, cold then warm from
+    the ``.rbase`` entry: identical finds and resume stamps, the warm pass
+    2 hit-only with no gunzip, ``rules:expand`` timed in both.  Returns
+    K1's launches."""
+    lines, psks, words, rules_text, _ = rules_unit(rng, RBASE_UNIT_WORDS)
+    raw = [ln for ln, _ in lines]
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    dhash = hashlib.md5(blob).hexdigest()
+    Server = stub_server(raw, rules_text)
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    phase = "phase 11d"
+    dcdir = CLIENT_DIR / "dictcache-11d"
+    nblk = -(-RBASE_UNIT_WORDS // UNIT_BATCH)
+    runs, total = {}, 0
+    for label in ("cold", "warm"):
+        server = Server(blob, dhash)
+        client, reg = make_client(server, CLIENT_DIR / f"rbase-{label}", 1, label, phase,
+                                  dict_cache_dir=dcdir)
+        stamps = pass2_stamps(client)
+        done, launches, opened, wall = run_counted(client)
+        total += launches
+        res = client.last_result
+        check(done == 1 and res.accepted and all(ok for _, ok in server.verdicts[-1]),
+              f"11d {label}: rules unit not accepted")
+        check_founds(res.founds, lines, f"{phase} {label}", psks)
+        want = (0, nblk) if label == "cold" else (nblk, 0)
+        check(cache_blocks(reg) == want and opened == int(label == "cold"),
+              f"11d {label}: hit/miss blocks {cache_blocks(reg)}, gunzip passes {opened}")
+        rules = client._rules({"rules": base64.b64encode(rules_text.encode()).decode()})
+        pass1 = len(list(client._pass1_candidates({"hashes": raw}, rules, [])))
+        check(res.candidates_tried == pass1 + RBASE_UNIT_WORDS * RULES_UNIT_RULES,
+              f"11d {label}: tried {res.candidates_tried}, pass 1 {pass1}")
+        spans = [r["t1"] - r["t0"] for r in client.tracer.records() if r["name"] == "rules:expand"]
+        runs[label] = (found_keys(res.founds), stamps, launches, res.candidates_tried)
+        print(f"{phase} {label}: accepted with {len(res.founds)}/5 ({RULES_UNIT_RULES} rules x "
+              f"{RBASE_UNIT_WORDS} base words); K1 launches {launches}; hit/miss blocks "
+              f"{cache_blocks(reg)}; pass-2 gunzip passes {opened}; rules:expand {len(spans)} "
+              f"spans, {sum(spans):.3f} s in all; run() {wall:.3f} s [{card}]", flush=True)
+        report_unit(client, reg, label, unit_pmk_s, card, phase)
+    check(runs["cold"] == runs["warm"],
+          "11d: warm founds, stamps, K1 launches or candidates differ from cold")
+    shutil.rmtree(CLIENT_DIR, ignore_errors=True)
+    return total
+
+
 def main():
     import torch
 
@@ -1609,7 +1984,7 @@ def main():
     check(torch.equal(pmk_kernel, pmk_plain), "kernel != plain on the main-path batch")
 
     res, probe_launches, probe_err, probe_plain_ms = phase_probe(dev, rng, card)
-    client_launches = phase_client(card, words, unit_pmk_s)
+    client_launches, phase6_p2 = phase_client(card, words, unit_pmk_s)
     expand_ms = phase_expand(dev, rng, card)
     rules_launches, rules_err = phase_rules_engine(dev, rng, card, expand_ms)
     err = max(err, rules_err)
@@ -1629,6 +2004,13 @@ def main():
     print(f"phase 10: {time.perf_counter() - t10:.1f} s; K1 through the fused step "
           f"{fused_ms:.3f} ms per {UNIT_BATCH}-lane batch against {k1_ms:.3f} ms with one "
           f"salt (phase 4); fused-path K1 launches {fused_launches} [{card}]", flush=True)
+    t11 = time.perf_counter()
+    phase_dict_cache_feed(card)
+    dcache_launches = {"11b": phase_dict_cache_engine(dev, card),
+                       "11c": phase_dict_cache_client(card, words, unit_pmk_s, phase6_p2),
+                       "11d": phase_rbase_client(card, rng, unit_pmk_s)}
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s; dict-cache-path K1 launches "
+          f"{dcache_launches} [{card}]", flush=True)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -1657,7 +2039,7 @@ def main():
     print(f"K2 bound: {n_full} threads x ({probe_loop} x {sm_probe.ITERS} + {probe_other}) SASS "
           f"instructions at the issue rate = {k2_bound_ms:.3f} ms; one launch "
           f"{sha1['seconds_1x'] * 1e3:.3f} ms [{card}]", flush=True)
-    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1673,7 +2055,8 @@ def main():
                              "mask client (phase 8c)": mask_client_launches,
                              "pmkstore (phase 9a)": store_launches,
                              "pmkstore client (phase 9b)": store_client_launches,
-                             "fused (phase 10)": sum(fused_launches.values())},
+                             "fused (phase 10)": sum(fused_launches.values()),
+                             "dict cache (phase 11)": sum(dcache_launches.values())},
     }, {
         "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,

@@ -16,10 +16,6 @@ from .main import ClientConfig, TpuCrackClient
 
 #: flag dest -> (flag, what is missing)
 DEFERRED = {
-    "dict_cache_dir": ("--dict-cache-dir",
-                       "the packed-dictionary cache (ROADMAP item DictCache)"),
-    "dict_cache_max_bytes": ("--dict-cache-max-bytes",
-                             "the packed-dictionary cache (ROADMAP item DictCache)"),
     "multihost": ("--multihost", "multi-host slices (ROADMAP later slice 10)"),
     "coordinator": ("--coordinator", "multi-host slices (ROADMAP later slice 10)"),
     "num_processes": ("--num-processes", "multi-host slices (ROADMAP later slice 10)"),
@@ -66,6 +62,15 @@ def build_parser():
                    default=256 * 1024 * 1024,
                    help="PMK store on-disk cap; oldest segments are "
                         "evicted beyond it (default 256 MiB)")
+    p.add_argument("--dict-cache-dir",
+                   help="persistent packed-dictionary cache directory: "
+                        "repeat pass-2 dicts are served as pre-packed "
+                        "mmap blocks (no gunzip/decode/pack, O(1) resume "
+                        "seek; files interchangeable with dwpa_tpu's)")
+    p.add_argument("--dict-cache-max-bytes", type=int,
+                   default=4 * 1024 * 1024 * 1024,
+                   help="dict cache on-disk cap; least-recently-used "
+                        "dicts are evicted beyond it (default 4 GiB)")
     p.add_argument("--unit-queue", type=int, default=4,
                    help="work units prefetched ahead of the device by "
                         "the fused multi-unit executor")
@@ -137,6 +142,8 @@ def main(argv=None):
         rule_workers=args.rule_workers,
         pmk_cache_dir=args.pmk_cache_dir,
         pmk_cache_max_bytes=args.pmk_cache_max_bytes,
+        dict_cache_dir=args.dict_cache_dir,
+        dict_cache_max_bytes=args.dict_cache_max_bytes,
         device=args.device,
     )
     TpuCrackClient(cfg).run()

@@ -29,12 +29,15 @@ uploads each block once and mangles it on the device by every rule.
 Server-issued mask shards reach the engine only as ``mask_blocks``
 blocks (``crack_blocks``), which generate their candidates on the
 device.  With ``pmk_cache_dir`` set, both passes run through a
-persistent PMK store (``dwpa_tpu_torch.pmkstore``).
+persistent PMK store (``dwpa_tpu_torch.pmkstore``); with
+``dict_cache_dir`` set, pass 2 reads every server dict after its first
+pass from the packed-dictionary cache (``feed.dictcache``: pre-packed
+rows, or pre-split rules bases, from an mmap; a resume is an index seek).
 
 Single process, single device.  What the port does not do yet is refused
 loudly at construction, never approximated: forced device streams
-(ROADMAP later slice 6) and a dict cache.  ``fused_executor`` cracks a
-stream of small units as fused mixed-ESSID batches (``sched/``).
+(ROADMAP later slice 6).  ``fused_executor`` cracks a stream of small
+units as fused mixed-ESSID batches (``sched/``).
 """
 
 import base64
@@ -46,7 +49,7 @@ import time
 from dataclasses import dataclass
 
 from .. import __version__
-from ..feed import CandidateFeed, RulesFeedSource
+from ..feed import CandidateFeed, DictCache, DictFeedSource, RulesFeedSource
 from ..gen import DictStream, psk_candidates
 from ..gen.mask import mask_blocks
 from ..models import hashline as hl
@@ -111,7 +114,11 @@ class ClientConfig:
     pmk_cache_max_bytes: int = 256 * 1024 * 1024  # --pmk-cache-max-bytes:
                                     # store cap; the oldest segments are
                                     # evicted beyond it
-    dict_cache_dir: str = None      # not ported yet (ROADMAP "DictCache")
+    dict_cache_dir: str = None      # --dict-cache-dir: persistent packed
+                                    # dict cache; repeat pass-2 dicts are
+                                    # served pre-packed (None = off)
+    dict_cache_max_bytes: int = 4 * 1024 * 1024 * 1024
+                                    # --dict-cache-max-bytes: cache size cap
     unit_queue: int = 4             # --unit-queue: work units prefetched
                                     # ahead of the device by the fused
                                     # executor (dwpa_tpu_torch/sched)
@@ -152,10 +159,6 @@ class WorkResult:
 
 def _refuse_unported(cfg: ClientConfig):
     """Raise for a configured feature that the port does not have yet."""
-    if cfg.dict_cache_dir:
-        raise NotImplementedError(
-            "dict_cache_dir: the packed-dictionary cache is not ported yet "
-            "(ROADMAP item DictCache)")
     if cfg.device_streams == "on":
         raise NotImplementedError(
             "device_streams='on': per-device streams are not ported yet "
@@ -244,6 +247,17 @@ class TpuCrackClient:
         if config.pmk_cache_dir:
             self.pmk_store = PMKStore(
                 config.pmk_cache_dir, max_bytes=config.pmk_cache_max_bytes,
+                registry=self.registry)
+        # Persistent packed-dictionary cache (optional): pass-2 server
+        # dicts — ~100%-recurring inputs keyed by dhash — are served as
+        # mmap'd pre-packed blocks on every unit after the first (zero
+        # gunzip/packing, O(1) resume seeks).  A changed server dict gets
+        # a new dhash (old entries age out of the LRU cap).
+        self.dict_cache = None
+        if config.dict_cache_dir:
+            self.dict_cache = DictCache(
+                config.dict_cache_dir,
+                max_bytes=config.dict_cache_max_bytes,
                 registry=self.registry)
         self.resume_path = os.path.join(config.workdir, "resume.json")
         self.potfile = config.potfile or os.path.join(config.workdir, "potfile")
@@ -691,14 +705,17 @@ class TpuCrackClient:
         with self.tracer.span("pass2") as sp2:
             paths = self._fetch_pass2_paths(work)
             if rules:
-                # The feed serves BASE-WORD blocks, framed per dict, and
-                # the engine uploads each block once and expands it on the
-                # device by every rule; `@`-purge and overflow pairs are
+                # The feed serves BASE-WORD blocks, framed per dict (warm
+                # ``.rbase`` entries skip the split + pack; cold dicts
+                # stream once and write the entry back), and the engine
+                # uploads each block once and expands it on the device by
+                # every rule; `@`-purge and overflow pairs are
                 # host-interpreted by the engine's seam.  skip2 counts
                 # expanded candidates, the engine's resume domain.
                 src = RulesFeedSource(
                     [(p, self._dict_key(p)) for p in paths],
-                    batch_size=self.cfg.batch_size, name="pass2")
+                    batch_size=self.cfg.batch_size, cache=self.dict_cache,
+                    name="pass2", log=self.log)
                 feed2 = CandidateFeed(
                     None, batch_size=self.cfg.batch_size, frames=src,
                     prepack=None, name="pass2", **cfg_feed)
@@ -709,10 +726,26 @@ class TpuCrackClient:
                 finally:
                     feed2.close()
             else:
-                words = (w for p in paths for w in DictStream(p))
-                feed2 = CandidateFeed(
-                    words, batch_size=self.cfg.batch_size, skip=skip2,
-                    prepack=engine.host_packer(), name="pass2", **cfg_feed)
+                if self.dict_cache is not None:
+                    # Packed-dict cache path: per-dict framing, warm dicts
+                    # served as pre-packed mmap blocks, cold dicts streamed
+                    # once and written back.  The source owns the resume
+                    # skip — warm skips are index seeks.
+                    src = DictFeedSource(
+                        [(p, self._dict_key(p)) for p in paths],
+                        batch_size=self.cfg.batch_size,
+                        cache=self.dict_cache, skip=skip2, name="pass2",
+                        log=self.log)
+                    feed2 = CandidateFeed(
+                        None, batch_size=self.cfg.batch_size, frames=src,
+                        prepack=engine.host_packer(), name="pass2",
+                        **cfg_feed)
+                else:
+                    words = (w for p in paths for w in DictStream(p))
+                    feed2 = CandidateFeed(
+                        words, batch_size=self.cfg.batch_size, skip=skip2,
+                        prepack=engine.host_packer(), name="pass2",
+                        **cfg_feed)
                 try:
                     engine.crack_blocks(feed2, on_batch=on_batch)
                 finally:

@@ -47,8 +47,9 @@ plus ``feed:skip`` / ``feed:produce`` spans in ``dwpa_span_seconds``.
 import threading
 import time
 
-from ..obs import SpanTracer, default_registry
-from .framing import frame_blocks, skip_stream
+from ..obs import SpanTracer, default_registry, get_logger
+from .framing import frame_blocks, frame_packed, frame_rules_packed, \
+    skip_stream
 
 #: seconds a waiting producer sleeps before it re-checks the queue (the
 #: wait is bounded so a producer never waits unboundedly while it holds
@@ -328,35 +329,174 @@ class CandidateFeed:
         return False
 
 
-class RulesFeedSource:
-    """Framed BASE-WORD block source for the device rule-expansion path
-    (``M22000Engine.crack_rules_blocks``), over a unit's dict files.
+#: a cold skip larger than this replays the gzip prefix long enough to
+#: matter — logged once per unit so the operator knows the O(skip)
+#: hazard fired (the warm path never does: cache skips are index seeks)
+SKIP_REPLAY_WARN = 1_000_000
 
-    Each dict is framed SEPARATELY by ``frame_blocks`` (offsets stay
-    global and contiguous across dicts), which is what keeps the
-    expansion order — and so every resume count — equal to the JAX
-    client's on a unit with several dicts: framing a chained word stream
-    would put blocks across dict boundaries.  Feed it to
-    ``CandidateFeed(frames=...)``; iteration runs on the feed's producer
-    side.
+#: words buffered per cache-writer hand-off on the cold tee
+_TEE_WORDS = 4096
 
-    ``units``: ``[(path, dhash | None)]`` in stream order.  A resume is
-    the engine's: ``crack_rules_blocks(skip=)`` drops whole blocks of the
-    expanded window without packing them.  This is the cold path only:
-    the packed-dictionary cache is not ported yet.
+
+def _tee(stream, wr):
+    """Pass words through to the framer while batching them into the
+    cache writer; commits on full-stream exhaustion (a partial consume
+    is aborted by the source's ``finally``)."""
+    buf = []
+    for w in stream:
+        buf.append(w)
+        if len(buf) >= _TEE_WORDS:
+            wr.add_many(buf)
+            buf = []
+        yield w
+    wr.add_many(buf)
+    wr.commit()
+
+
+class DictFeedSource:
+    """Framed block source over a unit's dict files — warm where the
+    packed cache has them, cold (with cache write-back) where not.
+
+    The warm-source adapter of ``feed.dictcache``: feed it to
+    ``CandidateFeed(frames=...)``.  Each dict is framed SEPARATELY
+    (offsets stay global and contiguous across dicts), so the
+    ``(offset, count)`` block geometry follows from the dict word counts
+    alone, whatever the cache state: a warm block carries exactly the
+    packed rows the cold block's words pack to, and the resume contract
+    is cache-state-independent.
+
+    ``units``: ``[(path, dhash | None)]`` in stream order (a None dhash
+    is never cached).  ``skip`` is the GLOBAL resume fast-forward: warm
+    dicts satisfy it with an index seek (O(1)); cold dicts replay the
+    prefix and log once per unit past ``SKIP_REPLAY_WARN`` words.
+    ``skipped`` reports the words actually consumed by the skip, exactly
+    like ``CandidateFeed.skipped``.  A cold dict is written back only
+    when this pass streams it from word 0: a dict the resume window cuts
+    into is served cold and left uncached, since its tee would see only
+    the tail.  Single-process framing.
+
+    Iteration is driven from the feed's producer side (under its source
+    lock), so cache reads and writes stay on producer threads.
     """
 
-    def __init__(self, units, batch_size: int, *, name: str = "pass2"):
+    #: the cache species this source reads and fills (``.rbase`` if True)
+    _rules = False
+
+    def __init__(self, units, batch_size: int, *, cache=None,
+                 skip: int = 0, name: str = "feed", log=None):
         self.units = list(units)
         self.batch_size = int(batch_size)
+        self.cache = cache
         self.name = name
+        self.skipped = 0
+        self._skip = max(0, int(skip))
+        self._log = log or get_logger("feed").info
+
+    def _warm_blocks(self, rd, start: int, base_offset: int):
+        """Blocks of a warm entry from word ``start`` on, the first at
+        global ``base_offset``."""
+        return frame_packed(rd.chunks(start), rd.total_words,
+                            self.batch_size, base_offset=base_offset,
+                            start=start)
 
     def __iter__(self):
         from ..gen.dicts import DictStream
 
-        offset = 0
-        for path, _dhash in self.units:
-            for blk in frame_blocks(DictStream(path), self.batch_size,
-                                    base_offset=offset):
-                offset = blk.offset + blk.count
-                yield blk
+        cache = self.cache
+        offset = 0            # global stream position (skipped + served)
+        remaining = self._skip
+        warned = False
+        for path, dhash in self.units:
+            rd = wr = None
+            if cache is not None:
+                rd, wr = cache.entry(dhash, rules=self._rules,
+                                     fill=remaining == 0)
+            if rd is not None:
+                # -- warm: mmap'd packed blocks, zero gunzip ------------
+                total = rd.total_words
+                if remaining >= total:
+                    # whole dict inside the resume window: pure index
+                    # math, nothing decompressed, nothing replayed
+                    remaining -= total
+                    self.skipped += total
+                    offset += total
+                    continue
+                start = remaining
+                self.skipped += start
+                remaining = 0
+                t0 = time.perf_counter()
+                served = 0
+                for blk in self._warm_blocks(rd, start, offset + start):
+                    cache.m_hit_blocks.inc()
+                    served += blk.count
+                    yield blk
+                el = time.perf_counter() - t0
+                if served and el > 0:
+                    cache.m_words_warm.set(served / el)
+                offset += total
+                continue
+            # -- cold: gunzip stream; write the cache alongside --------
+            stream = iter(DictStream(path))
+            if remaining:
+                if remaining > SKIP_REPLAY_WARN and not warned:
+                    warned = True
+                    self._log(
+                        f"feed {self.name}: cold dict skip replays "
+                        f"{remaining} words (O(skip) gzip prefix; a warm "
+                        f"dict cache would seek the block index instead)")
+                k = skip_stream(stream, remaining)
+                self.skipped += k
+                offset += k
+                remaining -= k
+                if remaining:
+                    continue      # dict exhausted inside the skip window
+            src = stream if wr is None else _tee(stream, wr)
+            t0 = time.perf_counter()
+            served = 0
+            try:
+                for blk in frame_blocks(src, self.batch_size,
+                                        base_offset=offset):
+                    if cache is not None:
+                        cache.m_miss_blocks.inc()
+                    served += blk.count
+                    offset = blk.offset + blk.count
+                    yield blk
+            finally:
+                if wr is not None:
+                    wr.abort()    # no-op after the tee's commit
+            el = time.perf_counter() - t0
+            if cache is not None and served and el > 0:
+                cache.m_words_cold.set(served / el)
+
+
+class RulesFeedSource(DictFeedSource):
+    """Framed BASE-WORD block source for the device rule-expansion path
+    (``M22000Engine.crack_rules_blocks``) — warm where the ``.rbase``
+    cache has the dict, cold (with ``.rbase`` write-back) where not.
+
+    The rules twin of ``DictFeedSource``.  Warm dicts serve
+    ``feed.framing.RulesPrep`` blocks (the split into device-eligible
+    bases and host-fallback words, and the pack, memoized: the engine
+    seam skips straight to H2D); cold dicts serve raw word blocks while
+    the tee writes the entry for next time.  Both emit the identical
+    ``frame_blocks`` ``(offset, count)`` geometry over the same raw word
+    stream, so a warm/cold transition between dicts (or a resume across
+    one) cannot shift the expansion order — which is also what keeps
+    every resume count equal to the JAX client's on a unit with several
+    dicts: framing a chained word stream would put blocks across dict
+    boundaries.
+
+    The source takes no skip: the resume window counts expanded pairs
+    and is the engine's own ``skip`` argument.  Single-process framing.
+    """
+
+    _rules = True
+
+    def __init__(self, units, batch_size: int, *, cache=None,
+                 name: str = "pass2", log=None):
+        super().__init__(units, batch_size, cache=cache, name=name, log=log)
+
+    def _warm_blocks(self, rd, start: int, base_offset: int):
+        return frame_rules_packed(rd.chunks(start), rd.total_words,
+                                  self.batch_size, base_offset=base_offset,
+                                  start=start)

@@ -396,6 +396,29 @@ class _RuleWords:
         return out
 
 
+class _BaseWords:
+    """Lazy base-word list over packed rows + lengths (the warm rules
+    cache keeps bases in packed device layout; the fallback split
+    guarantees they are HEX-free, so a packed row round-trips
+    losslessly).  Supports ``len``/indexing/iteration like the raw word
+    list it replaces, materializing bytes only on demand."""
+
+    __slots__ = ("rows", "lens", "n")
+
+    def __init__(self, rows, lens, n):
+        self.rows = rows
+        self.lens = lens
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, b):
+        if not 0 <= b < self.n:
+            raise IndexError(b)
+        return bo.words_to_bytes_be(self.rows[b])[: int(self.lens[b])]
+
+
 class _ShiftedWords:
     """pws view for one unit's lane window inside a fused batch: batch
     column ``b`` maps to the unit's own candidate list at ``b - lo``;
@@ -1249,11 +1272,15 @@ class M22000Engine:
     def _rules_flush(self, ctx, batch, account, push, skip):
         """One base-word flush through the device-expansion seam.
 
-        The body of ``crack_rules_blocks``, once per block: split the batch into device-eligible bases vs host-fallback words,
-        plan the fused rule chunks (``simulate_lens`` overflow routing +
-        per-chunk resume accounting), pack and upload the base block ONCE,
-        dispatch every chunk, then host-expand the fallback tail through
-        the normal packed path.  ``push(record, report)`` /
+        The body of ``crack_rules_blocks``, once per block: split the
+        batch into device-eligible bases vs host-fallback words, plan the
+        fused rule chunks (``simulate_lens`` overflow routing + per-chunk
+        resume accounting), pack and upload the base block ONCE, dispatch
+        every chunk, then host-expand the fallback tail through the
+        normal packed path.  ``batch`` is either a raw word list or a
+        warm ``feed.framing.RulesPrep`` (pre-split, pre-packed bases —
+        the dict cache's base-block layout), in which case both the split
+        and the pack are skipped.  ``push(record, report)`` /
         ``skip(report)`` receive the dispatched sub-batches in stream
         order; ``account(consumed)`` owns the caller's resume window.
         """
@@ -1264,21 +1291,34 @@ class M22000Engine:
         dev_rules, host_rules = ctx.dev_rules, ctx.host_rules
         base_dev = lens_dev = None
         with ctx.span("rules:expand"):
-            plain, fallback = [], []
-            for w in batch:
-                # Host-fallback words: overlong bases, and anything that
-                # could put "$HEX[...]" syntax in front of the engine's
-                # unhex stage (the host paths unhex AFTER rule
-                # application, so the device must not hash such words
-                # literally).  The substring check also catches bases a
-                # rule could extend into a valid wrapper; synthesizing
-                # "HEX[" itself from unrelated characters via chained
-                # inserts remains a documented, pathological divergence.
-                if len(w) > MAX_PSK_LEN or b"HEX[" in w:
-                    fallback.append((w, None))  # None = every rule
-                else:
-                    plain.append(w)
-            nplain = len(plain)
+            if hasattr(batch, "rules_base"):
+                # Warm base block: the fallback split and the pack
+                # already ran (and were cached); bases stay in packed
+                # layout, words materialize lazily on hits.
+                pre = batch
+                nplain = pre.nplain
+                plain = _BaseWords(pre.rows, pre.lens, nplain)
+                lens_np = np.asarray(pre.lens[:nplain], dtype=np.int32)
+                fallback = [(w, None) for w in pre.fallback]
+            else:
+                plain, fallback = [], []
+                for w in batch:
+                    # Host-fallback words: overlong bases, and anything
+                    # that could put "$HEX[...]" syntax in front of the
+                    # engine's unhex stage (the host paths unhex AFTER
+                    # rule application, so the device must not hash such
+                    # words literally).  The substring check also catches
+                    # bases a rule could extend into a valid wrapper;
+                    # synthesizing "HEX[" itself from unrelated
+                    # characters via chained inserts remains a
+                    # documented, pathological divergence.
+                    if len(w) > MAX_PSK_LEN or b"HEX[" in w:
+                        fallback.append((w, None))  # None = every rule
+                    else:
+                        plain.append(w)
+                pre = None
+                nplain = len(plain)
+                lens_np = None
             plan = []  # (chunk, expanded pairs, candidates to report)
             if nplain and self.groups and dev_rules:
                 # Per-chunk accounting and host-overflow routing run
@@ -1288,7 +1328,8 @@ class M22000Engine:
                 # ``expanded`` excludes the overflow pairs deferred to the
                 # host tail — each candidate is counted exactly once, or
                 # skip-by-count resume would overshoot.
-                lens_np = np.asarray([len(w) for w in plain], np.int32)
+                if lens_np is None:
+                    lens_np = np.asarray([len(w) for w in plain], np.int32)
                 for c0 in range(0, len(dev_rules), RULES_CHUNK):
                     chunk = dev_rules[c0:c0 + RULES_CHUNK]
                     overflow = 0
@@ -1306,13 +1347,16 @@ class M22000Engine:
                 # Pad to the engine batch size like _prepare, so every
                 # base block has one shape.
                 cap = max(self.batch_size, nplain)
-                packed = pack_candidates_fast(plain, 0, MAX_PSK_LEN, cap)
-                if packed is None:  # no native lib: plain Python pack
-                    rows = np.zeros((cap, 16), np.uint32)
-                    rows[:nplain] = bo.pack_passwords_be(plain)
+                if pre is not None:
+                    rows = pre.padded_rows(cap)  # a copy, never the mmap
                 else:
-                    rows, _, n = packed  # lens_np above is the source
-                    assert n == nplain  # min_len=0: no compaction
+                    packed = pack_candidates_fast(plain, 0, MAX_PSK_LEN, cap)
+                    if packed is None:  # no native lib: plain Python pack
+                        rows = np.zeros((cap, 16), np.uint32)
+                        rows[:nplain] = bo.pack_passwords_be(plain)
+                    else:
+                        rows, _, n = packed  # lens_np above is the source
+                        assert n == nplain  # min_len=0: no compaction
                 lens_pad = np.zeros(cap, np.int32)
                 lens_pad[:nplain] = lens_np
                 base_dev, lens_dev = self._h2d(rows), self._h2d(lens_pad)
@@ -1379,7 +1423,9 @@ class M22000Engine:
                            skip: int = 0, *, registry=None,
                            tracer=None) -> list:
         """Rules attack with ON-DEVICE mangling (``rules/device.py``) over
-        a framed base-word block stream (``feed.framing.frame_blocks``).
+        a framed base-word block stream (``feed.RulesFeedSource``; cold
+        blocks carry raw word lists, warm ones the dict cache's pre-split,
+        pre-packed ``RulesPrep`` base layout).
 
         The host uploads each base block ONCE (packed + lengths) and
         every device-eligible rule mangles it on the device — candidate
@@ -1432,12 +1478,10 @@ class M22000Engine:
                 # without splitting, packing or expanding it.
                 account.left -= exp
                 continue
-            if hasattr(getattr(block, "prep", None), "rules_base"):
-                raise NotImplementedError(
-                    "pre-split rules base blocks come from the dict cache, "
-                    "which is not ported yet (ROADMAP later slice 11)")
+            prep = getattr(block, "prep", None)
+            batch = prep if hasattr(prep, "rules_base") else block.words
             agg.begin()
-            self._rules_flush(ctx, block.words, account, push, skipf)
+            self._rules_flush(ctx, batch, account, push, skipf)
             agg.close()
         pipe.drain()
         return pipe.founds

@@ -613,8 +613,7 @@ def test_pass1_candidates_match_jax_client(server, tmp_path):
 
 
 def test_unported_features_refused(server, tmp_path):
-    for kw, slice_no in ((dict(dict_cache_dir=str(tmp_path / "d")), "DictCache"),
-                         (dict(device_streams="on"), "slice 6")):
+    for kw, slice_no in ((dict(device_streams="on"), "slice 6"),):
         with pytest.raises(NotImplementedError, match=slice_no):
             _client(server, tmp_path, **kw)
     # unit fusion is ported: its knobs construct a client
@@ -626,8 +625,7 @@ def test_client_cli_refuses_deferred_flags():
 
     a = build_parser().parse_args(["--url", "http://s/", "--device", "cuda:0"])
     assert (a.url, a.device) == ("http://s/", "cuda:0")
-    for argv in (["--url", "http://s/", "--dict-cache-dir", "x"],
-                 ["--url", "http://s/", "--multihost"],
+    for argv in (["--url", "http://s/", "--multihost"],
                  ["--url", "http://s/", "--device-streams", "on"],
                  []):
         with pytest.raises(SystemExit) as e:
@@ -659,6 +657,163 @@ def test_client_cli_rule_workers(server, tmp_path, monkeypatch):
     client = _client(server, tmp_path, rule_workers=seen[0].rule_workers)
     assert list(client._stream_cracked(["unused.gz"], parse_rules([":"]))) == []
     assert calls == [3]
+
+
+def test_client_cli_dict_cache_flags(monkeypatch, tmp_path):
+    """--dict-cache-dir / --dict-cache-max-bytes reach ClientConfig (the
+    cap defaults to 4 GiB, as the JAX client's), and the client opens the
+    cache there."""
+    from dwpa_tpu_torch.client import __main__ as cli
+
+    seen = []
+    monkeypatch.setattr(cli, "TpuCrackClient", lambda cfg: seen.append(cfg) or cli)
+    monkeypatch.setattr(cli, "run", lambda: 0, raising=False)
+    cli.main(["--url", "http://s/", "--device", "cpu", "--dict-cache-dir", str(tmp_path / "dc"),
+              "--dict-cache-max-bytes", "12345"])
+    cli.main(["--url", "http://s/", "--device", "cpu"])
+    assert [(c.dict_cache_dir, c.dict_cache_max_bytes) for c in seen] == [
+        (str(tmp_path / "dc"), 12345), (None, 4 << 30)]
+    assert ClientConfig(base_url="x").dict_cache_max_bytes == \
+        JClientConfig(base_url="x").dict_cache_max_bytes
+
+
+# -- the packed-dictionary cache ---------------------------------------------
+
+
+def _dictcache_client(server, tmp_path, workdir, registry=None, **kw):
+    return _client(server, tmp_path, workdir=workdir, registry=registry,
+                   dict_cache_dir=str(tmp_path / "dictcache"), **kw)
+
+
+def test_dictcache_metrics_and_warm_unit(server, tmp_path):
+    """``tests/test_client_loopback.py::test_dictcache_metrics_and_warm_unit``
+    on the port: with dict_cache_dir set, the first unit cold-streams the
+    dict while writing the packed cache (misses counted, bytes on disk),
+    and a replay of the same unit serves pass 2 from mmap'd packed blocks
+    — hits recorded, the warm words/s gauge live, the same finds."""
+    _ingest(server, [jtfx.make_pmkid_line(PSK, ESSID, seed="dc1")])
+    _add_dict(server, [b"cacheable-%06d" % i for i in range(30)] + [PSK])
+    reg = MetricsRegistry()
+    client = _dictcache_client(server, tmp_path, "work", registry=reg)
+
+    work = client.api.get_work(client.dictcount)
+    res = client.process_work(dict(work))
+    assert res.accepted and [f.psk for f in res.founds] == [PSK]
+    assert reg.value("dwpa_dictcache_miss_blocks_total") > 0
+    assert not reg.value("dwpa_dictcache_hit_blocks_total")
+    assert reg.value("dwpa_dictcache_bytes") > 0
+    text = reg.render_prometheus()
+    for name in ("dwpa_dictcache_hit_blocks_total",
+                 "dwpa_dictcache_miss_blocks_total",
+                 "dwpa_dictcache_bytes", "dwpa_dictcache_words_per_s"):
+        assert name in text, name
+
+    server.db.x("UPDATE nets SET n_state = 0, pass = NULL, algo = ''")
+    misses_before = reg.value("dwpa_dictcache_miss_blocks_total")
+    res2 = client.process_work(dict(work))
+    assert res2.accepted and [f.psk for f in res2.founds] == [PSK]
+    assert res2.candidates_tried == res.candidates_tried
+    assert reg.value("dwpa_dictcache_hit_blocks_total") > 0
+    assert reg.value("dwpa_dictcache_miss_blocks_total") == misses_before
+    assert reg.value("dwpa_dictcache_words_per_s", feed="warm") > 0
+
+
+def test_rules_unit_warm_from_rbase(server, tmp_path):
+    """A rules unit with dict_cache_dir: the cold unit writes an ``.rbase``
+    entry per dict, the replay serves every pass-2 base block from them
+    (no miss), and finds, candidate count and the rules counters equal
+    the cold unit's."""
+    _ingest(server, [jtfx.make_pmkid_line(RULE_PSK, ESSID, seed="rw1"),
+                     jtfx.make_eapol_line(RULE_PSK, ESSID, keyver=2, seed="rw2")])
+    _rules_dicts(server)
+    runs = []
+    for label in ("cold", "warm"):
+        reg = MetricsRegistry()
+        client = _dictcache_client(server, tmp_path, "work", registry=reg, batch_size=16)
+        work = client.api.get_work(2) if label == "cold" else runs[0][2]
+        res = client.process_work(dict(work))
+        counters = [reg.value("dwpa_rules_device_expanded_total")] + [
+            reg.value("dwpa_rules_host_fallback_total", reason=r) for r in ("purge", "overflow")]
+        runs.append((res, reg, work, counters))
+        server.db.x("UPDATE nets SET n_state = 0, pass = NULL, algo = ''")
+    (cold, creg, _, ccount), (warm, wreg, _, wcount) = runs
+    assert sorted(os.listdir(tmp_path / "dictcache")) == sorted(
+        f"{h}.rbase" for h in (server.db.q1("SELECT dhash FROM dicts WHERE dname = ?", (n,))["dhash"]
+                               for n in ("r1.txt.gz", "r2.txt.gz")))
+    assert creg.value("dwpa_dictcache_miss_blocks_total") == 3 + 4
+    assert not creg.value("dwpa_dictcache_hit_blocks_total")
+    assert wreg.value("dwpa_dictcache_hit_blocks_total") == 3 + 4
+    assert not wreg.value("dwpa_dictcache_miss_blocks_total")
+    for res in (cold, warm):
+        assert res.accepted and sorted(f.psk for f in res.founds) == [RULE_PSK] * 2
+    assert warm.candidates_tried == cold.candidates_tried and wcount == ccount
+
+
+@pytest.mark.parametrize("rules", [False, True], ids=["dict", "rules"])
+def test_warm_crash_and_replay_stamps_equal_cold(server, tmp_path, monkeypatch, rules):
+    """A warm unit crashed after its 2nd pass-2 checkpoint: every resume
+    stamp it wrote equals the cold unit's at the same point, and a fresh
+    client replays the rest by an index seek — pass 2 opens no
+    ``DictStream`` — skipping exactly the checkpointed count, with the
+    cold unit's finds, and is accepted."""
+    from dwpa_tpu_torch.gen import dicts as gdicts
+
+    psk = RULE_PSK if rules else PSK
+    _ingest(server, [jtfx.make_pmkid_line(psk, ESSID, seed="wc1")])
+    if rules:
+        _rules_dicts(server)
+    else:
+        _add_dict(server, [b"filler-%06d" % i for i in range(200)] + [PSK])
+
+    def stamps(client, crash_at=None):
+        """Record the resume stamps written once pass 2 has begun."""
+        seen, real_write, real_fetch = [], client._write_resume, client._fetch_pass2_paths
+        client._fetch_pass2_paths = lambda w: seen.append("pass2") or real_fetch(w)
+
+        def write(w):
+            real_write(w)
+            if seen and "_progress" in w:
+                seen.append(dict(w["_progress"]))
+                if len(seen) - 1 == crash_at:
+                    raise Crash
+
+        client._write_resume = write
+        return seen
+
+    opened = []
+
+    class CountingStream(gdicts.DictStream):
+        def __iter__(self):
+            opened.append(self.source)
+            return super().__iter__()
+
+    monkeypatch.setattr(gdicts, "DictStream", CountingStream)
+    cold = _dictcache_client(server, tmp_path, "cold", batch_size=16)
+    work = cold.api.get_work(2 if rules else 1)
+    cold_stamps = stamps(cold)
+    cold_res = cold.process_work(dict(work))
+    server.db.x("UPDATE nets SET n_state = 0, pass = NULL, algo = ''")
+
+    crashed = _dictcache_client(server, tmp_path, "warm", batch_size=16)
+    warm_stamps = stamps(crashed, crash_at=2)
+    with pytest.raises(Crash):
+        crashed.process_work(dict(work))
+    assert warm_stamps == cold_stamps[:3]
+    checkpointed = json.load(open(crashed.resume_path))["_progress"]["done"]
+    assert len(opened) == (2 if rules else 1)      # the cold unit's pass 2 only
+    del opened[:]
+
+    reg = MetricsRegistry()
+    revived = _dictcache_client(server, tmp_path, "warm", registry=reg, batch_size=16,
+                                max_work_units=1)
+    revived.api.get_work = lambda *a, **k: pytest.fail("must replay the resume")
+    assert revived.run() == 1
+    res = revived.last_result
+    assert reg.value("dwpa_client_resume_skipped_total") == checkpointed
+    assert not reg.value("dwpa_dictcache_miss_blocks_total") and opened == []
+    assert res.accepted and [(f.psk, f.line.raw) for f in res.founds] == \
+        [(f.psk, f.line.raw) for f in cold_res.founds]
+    assert checkpointed + res.candidates_tried == cold_stamps[-1]["done"]
 
 
 def test_client_defaults_to_the_card(server, tmp_path, monkeypatch):

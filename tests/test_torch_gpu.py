@@ -1,6 +1,7 @@
 """The port on a CUDA device: the PBKDF2 kernel, the engine, the SM
 probe kernel, the rule interpreter, the mask generator, the PMK
-store's mixed blocks and mixed-ESSID unit fusion.
+store's mixed blocks, mixed-ESSID unit fusion and the packed-dictionary
+cache's warm blocks.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 from torch_fixtures import (  # noqa: F401  (cuda_device is a fixture)
-    PBKDF2_ESSID, SLICE_PSK, cuda_device, five_net_group, pbkdf2_inputs, salt_essid,
+    PBKDF2_ESSID, SLICE_ESSID, SLICE_PSK, cuda_device, five_net_group, pbkdf2_inputs, salt_essid,
     slice_dictionary)
 
 from dwpa_tpu_torch.client.challenge import challenge
@@ -264,3 +265,74 @@ def test_fused_pmk_step_on_the_card_matches_plain(cuda_device):  # noqa: F811
         assert pbkdf2_cuda.LAUNCHES == before + 1
         t1, t2 = (t.index_select(0, args[1]) for t in args[2:])
         assert torch.equal(got, pbkdf2.pbkdf2_sha1_pmk(args[0], t1, t2, iterations=2))
+
+
+def _gz_dict(tmp_path, words):
+    """A gz dict named by its md5, as the client stores server dicts."""
+    import gzip
+
+    blob = gzip.compress(b"\n".join(words) + b"\n")
+    dhash = hashlib.md5(blob).hexdigest()
+    path = tmp_path / f"{dhash}.gz"
+    path.write_bytes(blob)
+    return [(str(path), dhash)]
+
+
+@pytest.mark.gpu
+def test_warm_crack_blocks_on_the_card(cuda_device, tmp_path):  # noqa: F811
+    """Cold, then warm from the ``.dcache`` entry the cold pass wrote:
+    the same founds and reports, K1 launched on the warm blocks, and the
+    PMKs equal hashlib's."""
+    from dwpa_tpu_torch.feed import CandidateFeed, DictCache, DictFeedSource
+    from dwpa_tpu_torch.obs import MetricsRegistry
+
+    units = _gz_dict(tmp_path, [b"card-dcache-%06d" % i for i in range(2500)] + [SLICE_PSK])
+    reg = MetricsRegistry()
+    cache = DictCache(str(tmp_path / "dc"), registry=reg)
+    runs = []
+    for _ in ("cold", "warm"):
+        eng = tm.M22000Engine(five_net_group(), batch_size=1024, device=cuda_device)
+        feed = CandidateFeed(None, 1024, frames=DictFeedSource(units, 1024, cache=cache),
+                             prepack=eng.host_packer(), registry=MetricsRegistry())
+        before = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+        reports = []
+        founds = eng.crack_blocks(feed, on_batch=lambda c, f: reports.append((c, len(f))))
+        feed.close()
+        assert pbkdf2_cuda.LAUNCHES > before[0] and pbkdf2.CALLS == before[1]
+        runs.append((sorted((f.line.raw, f.psk, f.nc, f.endian, f.pmk) for f in founds), reports))
+    assert runs[0] == runs[1] and runs[1][1] == [(1024, 0), (1024, 0), (453, 5)]
+    assert reg.value("dwpa_dictcache_hit_blocks_total") == 3
+    assert {k[4] for k in runs[1][0]} == {hashlib.pbkdf2_hmac("sha1", SLICE_PSK, SLICE_ESSID,
+                                                             4096, 32)}
+
+
+@pytest.mark.gpu
+def test_warm_crack_rules_blocks_on_the_card(cuda_device, tmp_path):  # noqa: F811
+    """A rules pass cold, then warm from ``.rbase``: the base blocks arrive
+    pre-split and pre-packed, expand on cuda:0, and give the cold run's
+    founds and reports; the PSK's PMK equals hashlib's."""
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.feed import DictCache, RulesFeedSource
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.rules import parse_rules
+
+    essid, psk = b"card-rbase", b"Cardrulebase7!"          # 'cardrulebase7!' through 'c'
+    words = [b"card-rbase-%05d" % i for i in range(1500)]
+    words[1200:1200] = [b"cardrulebase7!", b"y" * 70, b"$HEX[6162636465666768]"]
+    units = _gz_dict(tmp_path, words)
+    rules = parse_rules([":", "u", "c", "$1"])
+    reg = MetricsRegistry()
+    cache = DictCache(str(tmp_path / "dc"), registry=reg)
+    runs = []
+    for _ in ("cold", "warm"):
+        eng = tm.M22000Engine([tfx.make_pmkid_line(psk, essid, seed="card-rb")],
+                              batch_size=1024, device=cuda_device)
+        before = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+        reports = []
+        founds = eng.crack_rules_blocks(RulesFeedSource(units, 1024, cache=cache), rules,
+                                        on_batch=lambda c, f: reports.append((c, len(f))))
+        assert pbkdf2_cuda.LAUNCHES > before[0] and pbkdf2.CALLS == before[1]
+        runs.append(([(f.psk, f.pmk) for f in founds], reports))
+    assert runs[0] == runs[1] == (
+        [(psk, hashlib.pbkdf2_hmac("sha1", psk, essid, 4096, 32))], [(4096, 0), (1916, 1)])
+    assert reg.value("dwpa_dictcache_hit_blocks_total") == 2

@@ -13,13 +13,16 @@
   ``crack_rules_blocks``: the founds and the ``on_batch`` sequences, with
   ``$HEX``/overlong fallback words, an ``@`` purge rule, overflow pairs
   and resume skips;
-- ``RulesFeedSource`` framing over two dicts against the JAX cold path.
+- ``RulesFeedSource`` framing over two dicts against the JAX cold path,
+  and ``crack_rules_blocks`` over its warm ``.rbase`` blocks against its
+  cold run and the JAX engine's cold and warm runs.
 
 The port's PBKDF2 is ``hashlib_pmk`` here (the plain torch PBKDF2 at 4096
 iterations takes minutes on a CPU); the JAX side runs its own.
 """
 
 import gzip
+import hashlib
 
 import jax
 import numpy as np
@@ -29,6 +32,7 @@ from test_rules_device import RULES, WORDS
 from torch_fixtures import hashlib_pmk
 
 from dwpa_tpu import testing as jtfx
+from dwpa_tpu.feed import DictCache as JDictCache
 from dwpa_tpu.feed import RulesFeedSource as JRulesFeedSource
 from dwpa_tpu.feed import frame_blocks as jframe_blocks
 from dwpa_tpu.models import hashline as jhl
@@ -39,7 +43,7 @@ from dwpa_tpu.rules import device as jdev
 from dwpa_tpu.rules import parse_rule as jparse_rule
 from dwpa_tpu.rules import parse_rules as jparse_rules
 from dwpa_tpu.rules import wpa_rules_text as jwpa_rules_text
-from dwpa_tpu_torch.feed import RulesFeedSource, frame_blocks
+from dwpa_tpu_torch.feed import DictCache, RulesFeedSource, frame_blocks
 from dwpa_tpu_torch.models import m22000 as tm
 from dwpa_tpu_torch.obs import MetricsRegistry
 from dwpa_tpu_torch.parallel.step import RULES_CHUNK, build_rules_step
@@ -266,13 +270,71 @@ def test_crack_rules_and_blocks_match_jax(monkeypatch, skip):
         assert reg.value("dwpa_rules_device_expanded_total") > 0
 
 
-def test_rules_blocks_refuse_cached_base_blocks():
-    from dwpa_tpu_torch.feed.framing import Block, RulesPrep
+def test_rules_blocks_refuse_cached_base_blocks(monkeypatch):
+    """A pre-split, pre-packed base block (``RulesPrep``, the dict cache's
+    ``.rbase`` layout), once refused, now cracks exactly as the raw word
+    block it stands for: the same founds and the same on_batch report."""
+    from dwpa_tpu_torch.feed.framing import Block, RulesPrep, rules_base_eligible
 
-    blk = Block(offset=0, count=1, words=[], padded=False)
-    blk.prep = RulesPrep(np.zeros((1, 16), np.uint32), np.zeros(1, np.uint8), 1, [])
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        _teng().crack_rules_blocks([blk], parse_rules([":"]))
+    monkeypatch.setattr(tm, "_pmk_impl", hashlib_pmk)
+    words = _engine_words()[32:64]            # the overlong and the 63-byte base
+    words[5] = b"meshword77!"                 # PSK_U's base
+    plain = [w for w in words if rules_base_eligible(w)]
+    prep = RulesPrep(bo.pack_passwords_be(plain), np.array([len(w) for w in plain], np.uint8),
+                     len(plain), [w for w in words if not rules_base_eligible(w)])
+    rules = parse_rules(ENGINE_RULES)
+    got = []
+    for blk in (Block(offset=0, count=32, words=words),
+                Block(offset=0, count=32, words=[], prep=prep)):
+        log = []
+        founds = _teng().crack_rules_blocks([blk], rules, on_batch=_log(log))
+        got.append((_keys(founds), log))
+    assert got[0] == got[1]
+    assert got[0][1] == [(32 * len(rules), [PSK_U])]
+
+
+def _rules_run(source, engine, units, cache, rules, skip=0):
+    """(founds, on_batch log) of ``crack_rules_blocks`` over a
+    ``RulesFeedSource`` class of either package reading ``cache``, with
+    the engine's resume ``skip`` (expanded candidates)."""
+    log = []
+    src = source(units, batch_size=BATCH, cache=cache)
+    founds = engine.crack_rules_blocks(
+        iter(src), rules, skip=skip,
+        on_batch=lambda c, f: log.append((c, sorted(x.psk for x in f))))
+    return _keys(founds), log
+
+
+def test_crack_rules_blocks_warm_equals_cold_and_jax(monkeypatch, tmp_path):
+    """``tests/test_rules_mesh.py::test_rbase_warm_cold_parity`` on the
+    port: the cold run (tee write-back) and the warm replay (``RulesPrep``
+    blocks: no split, no pack) give the founds and per-block counts of
+    the JAX engine's cold and warm runs; an engine skip of block 0's
+    expanded candidates on the warm blocks covers exactly the tail."""
+    monkeypatch.setattr(tm, "_pmk_impl", hashlib_pmk)
+    blob = gzip.compress(b"\n".join(_engine_words()) + b"\n")
+    path = tmp_path / f"{hashlib.md5(blob).hexdigest()}.gz"
+    path.write_bytes(blob)
+    units = [(str(path), path.stem)]
+    reg = MetricsRegistry()
+    tc, jc = DictCache(str(tmp_path / "torch"), registry=reg), JDictCache(str(tmp_path / "jax"))
+    rules, jrules = parse_rules(ENGINE_RULES), jparse_rules(ENGINE_RULES)
+
+    cold = _rules_run(RulesFeedSource, _teng(), units, tc, rules)
+    assert tc.entry(units[0][1], rules=True, fill=False)[0] is not None  # the tee committed
+    warm = _rules_run(RulesFeedSource, _teng(), units, tc, rules)
+    assert [reg.value(f"dwpa_dictcache_{k}_blocks_total") for k in ("hit", "miss")] == [3, 3]
+    jcold = _rules_run(JRulesFeedSource, _jeng(), units, jc, jrules)
+    jwarm = _rules_run(JRulesFeedSource, _jeng(), units, jc, jrules)
+    assert warm == cold == jcold == jwarm
+    assert sorted(k[1] for k in warm[0]) == sorted([PSK_U, PSK_C, PSK_HEX])
+    assert sum(c for c, _ in warm[1]) == len(_engine_words()) * len(rules)
+
+    skip = BATCH * len(rules)
+    tail = _rules_run(RulesFeedSource, _teng(), units, tc, rules, skip=skip)
+    assert tail == _rules_run(JRulesFeedSource, _jeng(), units, jc, jrules, skip=skip)
+    assert sorted(k[1] for k in tail[0]) == sorted([PSK_C, PSK_HEX])
+    assert tail[1] == warm[1][1:]
 
 
 # -- the feed source ---------------------------------------------------------
