@@ -91,6 +91,24 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    rules unit, its dict cut to one block and without the pass-1 cracked
    dict, cold then warm from ``.rbase`` (the same finds, ``rules:expand``
    timed in both).
+12. the server (``dwpa_tpu_torch.server``): (a) its ``PmkBatcher`` on
+   ``cuda:0`` over 8 ESSIDs x 1000 words (lengths 8-63, repeats and
+   out-of-range words mixed in), one K1 launch per wave, sampled PMKs
+   equal to hashlib; a set at each fused width (256, 1024, 2048 lanes);
+   two threads deriving at once; ``verify_batch`` on the card equal to
+   the host path over PMKID, keyver 1/2/3 and NC items; K1's time per
+   pre-crack launch; (b) ``jobs.precrack`` at the server's defaults
+   (limit 100, batch 2048, dict limit 64) on a database of 1,000 nets
+   (900 processed, 200 of them cracked; 100 fresh with hits planted
+   through every source), on the card and on the host from copies of
+   it: equal ``nets`` / ``rkg`` rows, the planted nets cracked, the
+   sweep's seconds split into collect, derive and demux; the card leg
+   again at batch 131072; (c) the port's WSGI server on 127.0.0.1 with
+   the ingest pre-crack on the card and the cron layer's pre-crack on a
+   second thread, a capture POSTed, and ``TpuCrackClient.run()`` on
+   ``cuda:0`` cracking its nets over HTTP from a 131072-word dict: the
+   unit accepted, the PSKs re-verified by ``put_work``, the lease
+   released.
 
 It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -169,6 +187,20 @@ DCACHE_FEED_WORDS = 200_000             # 11a: bench.py:398 dict_cache, the feed
 DCACHE_E2E_BATCHES = 2                  # 11b: bench.py:447, the e2e legs at 2 x 131072
 DCACHE_RESUME = UNIT_BATCH + 12345      # 11b: a mid-stream resume skip
 RBASE_UNIT_WORDS = UNIT_BATCH           # 11d: 7c's base dict cut to one block for time
+PRECRACK_ESSIDS = 8                     # 12a: 8 ESSIDs x 1000 words, lengths 8-63
+PRECRACK_ESSID_WORDS = 1000
+PRECRACK_SAMPLE = 512                   # 12a/12b: derived PMKs held to hashlib
+PRECRACK_BATCH = 2048                   # 12b: the server's defaults (server/__main__.py)
+PRECRACK_LIMIT = 100
+PRECRACK_DICT_LIMIT = 64
+PRECRACK_PROCESSED = 900                # 12b: 1,000 nets, 900 processed, 200 of them cracked
+PRECRACK_CRACKED = 200
+PRECRACK_CORPUS_PSKS = 80
+PRECRACK_UNPROCESSED = 100
+SERVER_CRON_NETS = 24                   # 12c: nets the cron thread's pre-crack cracks
+SERVER_DICT_WORDS = UNIT_BATCH          # 12c: the unit's dict, 131072 words
+SERVER_PSK = b"h100-server-psk"
+SERVER_ESSID = b"dwpa-torch-server"
 
 
 def check(cond, msg):
@@ -1930,6 +1962,490 @@ def phase_rbase_client(card, rng, unit_pmk_s):
     return total
 
 
+def server_rows(db):
+    """The ``nets`` and ``rkg`` rows, without the columns stamped with
+    the wall clock (the two legs of a sweep run at different times)."""
+    out = {}
+    for table in ("nets", "rkg"):
+        cols = [r[1] for r in db.conn.execute(f"PRAGMA table_info({table})")
+                if r[1] not in ("ts", "sts")]
+        out[table] = [tuple(r) for r in db.conn.execute(
+            f"SELECT {', '.join(cols)} FROM {table} ORDER BY rowid")]
+    return out
+
+
+def check_pmks(batcher, pairs, what):
+    """Every pair's PMK in the batcher's memo equals hashlib's."""
+    for essid, word in pairs:
+        check(batcher.pmk(essid, word) == hashlib.pbkdf2_hmac("sha1", word, essid, 4096, 32),
+              f"{what}: PMK of {word!r} under {essid!r} != hashlib")
+
+
+def phase_precrack_batcher(dev, rng, card):
+    """12a: the server's ``PmkBatcher`` on the card.  Returns (K1 launches
+    of the prewarms, ms per 2048-lane launch, PMKs derived, derive s)."""
+    import torch
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.models import m22000 as m
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.sched.fuse import pack_salted_lanes
+    from dwpa_tpu_torch.server.core import SERVER_NC
+    from dwpa_tpu_torch.server.precrack import PmkBatcher, verify_batch
+
+    essids = [b"precrack-essid-%d" % i for i in range(PRECRACK_ESSIDS)]
+    pairs = [(e, w) for e in essids
+             for w in random_words(rng, PRECRACK_ESSID_WORDS, 8, 63)]
+    odd = [(essids[0], b"short"), (essids[1], b"x" * 70), (essids[2], b"")]
+    shapes = []
+    real_kernel = m.pmk_kernel
+
+    def kernel_spy(pw, s1, s2, *args, **kwargs):
+        shapes.append(tuple(pw.shape))
+        return real_kernel(pw, s1, s2, *args, **kwargs)
+
+    m.pmk_kernel = kernel_spy
+    launches = 0
+    derived = derive_s = 0.0
+    try:
+        batcher = PmkBatcher(device="auto")
+        check(batcher.device_enabled() and batcher._dev == dev, f"batcher on {batcher._dev}")
+        pbkdf2_cuda.LAUNCHES = pbkdf2.CALLS = 0
+        t0 = time.perf_counter()
+        stats = batcher.prewarm(pairs + pairs[:500] + odd)
+        derive_s += time.perf_counter() - t0
+        derived += stats["derived"]
+        waves = -(-len(pairs) // batcher.batch)
+        check(pbkdf2_cuda.LAUNCHES == waves and pbkdf2.CALLS == 0,
+              f"12a: {pbkdf2_cuda.LAUNCHES} K1 launches for {waves} waves")
+        check(stats["unique"] == len(pairs) + len(odd), f"12a stats {stats}")
+        launches += pbkdf2_cuda.LAUNCHES
+        sample = [pairs[i] for i in rng.choice(len(pairs), PRECRACK_SAMPLE, replace=False)]
+        check_pmks(batcher, sample + odd, "12a mixed set")
+        mixed_shapes = list(shapes)
+        widths = {}
+        for n in (200, 900, 2048):   # one set for each fused width: 256, 1024, 2048
+            shapes.clear()
+            one = PmkBatcher(device="auto")
+            sub = [(essids[i % PRECRACK_ESSIDS], w) for i, w in
+                   enumerate(random_words(rng, n, 8, 63))]
+            pbkdf2_cuda.LAUNCHES = 0
+            t0 = time.perf_counter()
+            stats = one.prewarm(sub)
+            derive_s += time.perf_counter() - t0
+            derived += stats["derived"]
+            check(pbkdf2_cuda.LAUNCHES == 1, f"12a {n} lanes: {pbkdf2_cuda.LAUNCHES} launches")
+            launches += 1
+            widths[n] = shapes[0]
+            check_pmks(one, sub[:64] + sub[-64:], f"12a {n} lanes")
+        check([w[0] for w in widths.values()] == [256, 1024, 2048], f"12a widths {widths}")
+    finally:
+        m.pmk_kernel = real_kernel
+
+    # two threads deriving at once (the ingest pre-crack beside the cron job)
+    sets = [[(b"thread-%d-essid" % t, w) for w in random_words(rng, 3000, 8, 40)]
+            for t in range(2)]
+    batchers = [PmkBatcher(device="auto") for _ in sets]
+    barrier = threading.Barrier(2)
+    errors = []
+
+    def derive_in_thread(b, ps):
+        try:
+            barrier.wait()
+            b.prewarm(ps)
+            torch.cuda.synchronize()
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    pbkdf2_cuda.LAUNCHES = 0
+    threads = [threading.Thread(target=derive_in_thread, args=(b, ps)) for b, ps in zip(batchers, sets)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"12a concurrent derives raised {errors}")
+    launches += pbkdf2_cuda.LAUNCHES
+    for b, ps in zip(batchers, sets):
+        check_pmks(b, ps[:128] + ps[-128:], "12a concurrent")
+
+    psk, essid = b"precrack-verify-psk", b"PrecrackVerifyNet"
+    items = [
+        (tfx.make_pmkid_line(psk, essid, seed="12a-p"), [b"wrong-pmkid-1", psk], None),
+        (tfx.make_pmkid_line(psk, b"OtherEssid12a", seed="12a-p2"), [b"wrong-pmkid-2"], None),
+        (tfx.make_eapol_line(psk, essid, keyver=1, seed="12a-1"), [psk], None),
+        (tfx.make_eapol_line(psk, essid, keyver=2, seed="12a-2"), [b"wrong-two-2", psk], None),
+        (tfx.make_eapol_line(psk, essid, keyver=2, nc_delta=-2, endian="BE", seed="12a-n"),
+         [psk], None),
+        (tfx.make_eapol_line(psk, essid, keyver=3, seed="12a-3"), [psk], None),
+        (tfx.make_eapol_line(psk, essid, keyver=3, seed="12a-3m"), [b"wrong-three3"], None),
+        (tfx.make_eapol_line(psk, essid, keyver=2, seed="12a-i"), [psk],
+         hashlib.pbkdf2_hmac("sha1", psk, essid, 4096, 32)),
+    ]
+    pbkdf2_cuda.LAUNCHES = 0
+    on_card = verify_batch(items, nc=SERVER_NC, batcher=PmkBatcher(device="auto"))
+    launches += pbkdf2_cuda.LAUNCHES
+    on_host = verify_batch(items, nc=SERVER_NC, batcher=PmkBatcher(device="off"))
+    check(on_card == on_host, f"12a verify_batch card {on_card} != host {on_host}")
+    check([r is not None for r in on_card] == [True, False, True, True, True, True, False, True],
+          f"12a verdicts {on_card}")
+    check(on_card[4][1:3] == (-2, "BE"), f"12a NC verdict {on_card[4]}")
+
+    # K1 per pre-crack launch at each fused width (not a main-path launch)
+    times = {}
+    for n in (256, 1024, 2048):
+        rows, s1, s2, _ = pack_salted_lanes(pairs[:n], 2048, 1)
+        args = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+                for a in (rows, s1, s2)]
+        times[n] = cuda_ms(lambda: pbkdf2_cuda.pbkdf2_sha1_pmk_cuda(*args), 5)
+    print(f"phase 12a batcher: {len(pairs)} pairs over {PRECRACK_ESSIDS} ESSIDs (+500 "
+          f"repeats, {len(odd)} out-of-range words) in {waves} waves, K1 launches = waves, "
+          f"shapes {mixed_shapes}; one set per fused width {widths}; {PRECRACK_SAMPLE} sampled "
+          f"PMKs and every out-of-range one = hashlib; two threads deriving at once exact; "
+          f"verify_batch on the card = host over PMKID, keyver 1/2/3, NC and injected-PMK "
+          f"items {[r and r[1:3] for r in on_card]}; K1 ms per pre-crack launch (CUDA events, "
+          f"median of 5): {times} [{card}]", flush=True)
+    return launches, times[2048], derived, derive_s
+
+
+def fleet_net(i, essid, psk, mac_ap=None, keyver=None):
+    from dwpa_tpu_torch import testing as tfx
+
+    seed = "12b-%04d" % i
+    if keyver is None:
+        return tfx.make_pmkid_line(psk, essid, seed=seed, mac_ap=mac_ap)
+    return tfx.make_eapol_line(psk, essid, keyver=keyver, seed=seed, mac_ap=mac_ap)
+
+
+def precrack_fleet(rng):
+    """12b's database content: (lines, cracked {line: psk}, processed
+    lines, expected {essid: algo} of the nets the sweep must crack)."""
+    from dwpa_tpu_torch.gen import vendors
+    from dwpa_tpu_torch.gen.psktool import psk_candidates
+    from dwpa_tpu_torch.server.jobs import single_mode_candidates
+
+    corpus = random_words(rng, PRECRACK_CORPUS_PSKS, 10, 16)
+    lines, cracked, expected = [], {}, {}
+    for i in range(PRECRACK_PROCESSED):
+        essid = b"FleetNet-%04d" % i
+        psk = corpus[i % len(corpus)] if i < PRECRACK_CRACKED else random_words(rng, 1, 12, 20)[0]
+        line = fleet_net(i, essid, psk)
+        lines.append(line)
+        if i < PRECRACK_CRACKED:
+            cracked[line] = psk
+    processed = list(lines)
+
+    def mac(j):
+        return bytes([0x00, 0x1a, 0x2b, 0x3c, j // 256, j % 256])
+
+    def plant(j, essid, algo, psk, keyver=None):
+        lines.append(fleet_net(10_000 + j, essid, psk, mac_ap=mac(j), keyver=keyver))
+        if algo:
+            expected[essid] = algo
+
+    j = 0
+    for k in range(4):   # EasyBox: two hits, two misses
+        essid = b"EasyBox-%06X" % (0x100000 + k)
+        plant(j, essid, "EasyBox" if k < 2 else None,
+              list(vendors.easybox_keys(mac(j)))[k % 2] if k < 2 else b"easybox-miss-%d" % k)
+        j += 1
+    for essid, fn, algo in ((b"belkin.3c4d", vendors.belkin_keys, "Belkin"),
+                            (b"SKY12345", vendors.sky_keys, "Sky"),
+                            (b"Tenda_3C4D5E", vendors.mac_tail_keys, "MacTail")):
+        plant(j, essid, algo, list(fn(mac(j)))[0])
+        j += 1
+    imei = list(vendors.imei_hotspot_keys())
+    for k in range(3):   # IMEI: two hits, one miss
+        plant(j, b"AndroidAP-%02d" % k, "IMEI" if k < 2 else None,
+              imei[17 + 60 * k] if k < 2 else b"imei-miss-psk")
+        j += 1
+    for k, keyver in enumerate((1, 2)):   # Single, on EAPOL nets
+        essid = b"HomeFleet%02d" % k
+        plant(j, essid, "Single", essid.lower() + b"1", keyver=keyver)
+        j += 1
+    essid = b"PatternFleet"
+    single = set(single_mode_candidates(mac(j), essid))
+    pattern = next(c for c in psk_candidates(essid, mac(j)) if c not in single and len(c) >= 8)
+    plant(j, essid, "Pattern", pattern)
+    j += 1
+    plant(j, b"FleetNet-0007", "Replay", cracked[processed[7]])   # a cracked sibling's ESSID
+    j += 1
+    plant(j, b"CorpusFleet", "Dict", corpus[3])   # cracked 3 times: in the top 64
+    j += 1
+    while j < PRECRACK_UNPROCESSED:   # misses: vendor-shaped and plain ESSIDs
+        essid = (b"EasyBox-%06X" % (0x200000 + j) if j % 3 == 0 else
+                 b"Tenda_%06X" % j if j % 3 == 1 else b"PlainFleet-%03d" % j)
+        plant(j, essid, None, random_words(rng, 1, 12, 24)[0])
+        j += 1
+    return lines, cracked, processed, expected
+
+
+def build_precrack_db(path, rng):
+    """A port-server database of ``PRECRACK_PROCESSED`` processed nets
+    (``PRECRACK_CRACKED`` of them cracked) and ``PRECRACK_UNPROCESSED``
+    fresh ones.  Returns the expected {essid: algo}."""
+    from dwpa_tpu_torch.oracle import m22000 as oracle
+    from dwpa_tpu_torch.server import Database, ServerCore
+
+    lines, cracked, processed, expected = precrack_fleet(rng)
+    core = ServerCore(Database(str(path)))
+    report = core.add_hashlines(lines)
+    check(report["new"] == len(lines), f"12b ingest {report}")
+    with core.db.tx():
+        for line in processed:
+            row = core.db.q1("SELECT net_id, ssid FROM nets WHERE struct = ?", (line,))
+            psk = cracked.get(line)
+            if psk is None:
+                core.db.x("UPDATE nets SET algo = '' WHERE net_id = ?", (row["net_id"],))
+            else:
+                core.db.x("UPDATE nets SET pass = ?, pmk = ?, n_state = 1, algo = 'Manual' "
+                          "WHERE net_id = ?", (psk, oracle.pmk_from_psk(psk, row["ssid"]),
+                                               row["net_id"]))
+    core.db.close()
+    return expected
+
+
+def timed_sweep(path, dictdir, batch, device):
+    """``jobs.precrack`` at the server's defaults on a copy of the 12b
+    database; its seconds split into collect, derive (``prewarm``) and
+    the per-net demux, timed from outside the engine."""
+    import torch
+
+    from dwpa_tpu_torch.server import Database, ServerCore, jobs
+    from dwpa_tpu_torch.server.precrack import PrecrackEngine
+
+    core = ServerCore(Database(str(path)), dictdir=str(dictdir))
+    eng = core.precrack = PrecrackEngine(core, batch=batch, device=device,
+                                         dict_limit=PRECRACK_DICT_LIMIT)
+    t = {"collect": 0.0, "derive": 0.0}
+    derive_stats, lanes = [], []
+    real_collect, real_prewarm = eng._collect, eng.batcher.prewarm
+    real_derive = eng.batcher._derive_device
+
+    def counted_derive(items):
+        lanes.append(len(items))
+        return real_derive(items)
+
+    def timed_collect(*args):
+        t0 = time.perf_counter()
+        out = real_collect(*args)
+        t["collect"] += time.perf_counter() - t0
+        return out
+
+    def timed_prewarm(pairs):
+        t0 = time.perf_counter()
+        out = real_prewarm(pairs)
+        t["derive"] += time.perf_counter() - t0
+        derive_stats.append(out)
+        return out
+
+    eng._collect, eng.batcher.prewarm = timed_collect, timed_prewarm
+    eng.batcher._derive_device = counted_derive
+    t0 = time.perf_counter()
+    out = jobs.precrack(core, limit=PRECRACK_LIMIT, batch=batch, device=device,
+                        dict_limit=PRECRACK_DICT_LIMIT)
+    if device != "off":
+        torch.cuda.synchronize()
+    t["sweep"] = time.perf_counter() - t0
+    t["demux"] = t["sweep"] - t["collect"] - t["derive"]
+    rows = server_rows(core.db)
+    cracked = {r["ssid"]: r["algo"] for r in core.db.q(
+        "SELECT ssid, algo FROM nets WHERE n_state = 1 AND algo != 'Manual'")}
+    core.db.close()
+    waves = sum(-(-n // batch) for n in lanes)
+    return out, t, derive_stats[0], rows, cracked, eng.batcher, waves
+
+
+def phase_precrack_sweep(rng, card):
+    """12b: the pre-crack sweep at the server's defaults on the card,
+    against the host on the same database.  Returns K1's launches."""
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+
+    root = CLIENT_DIR / "precrack"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    expected = build_precrack_db(root / "fleet.db", rng)
+    build_s = time.perf_counter() - t0
+    legs = {}
+    launches = 0
+    for label, batch, device in (("card", PRECRACK_BATCH, "auto"), ("host", PRECRACK_BATCH, "off"),
+                                 ("card131072", UNIT_BATCH, "auto")):
+        path = root / f"{label}.db"
+        shutil.copy(root / "fleet.db", path)
+        pbkdf2_cuda.LAUNCHES = pbkdf2.CALLS = 0
+        out, t, stats, rows, cracked, batcher, waves = timed_sweep(path, root / label, batch,
+                                                                   device)
+        legs[label] = (out, t, stats, rows, cracked, pbkdf2_cuda.LAUNCHES)
+        check(pbkdf2.CALLS == 0, f"12b {label}: the plain PBKDF2 ran")
+        if device == "off":
+            check(pbkdf2_cuda.LAUNCHES == 0, "12b host leg launched K1")
+        else:
+            check(waves > 0 and pbkdf2_cuda.LAUNCHES == waves, f"12b {label}: {pbkdf2_cuda.LAUNCHES} launches "
+                  f"for {waves} waves")
+            launches += pbkdf2_cuda.LAUNCHES
+            pairs = list(batcher._memo)
+            sample = [pairs[i] for i in rng.choice(len(pairs), PRECRACK_SAMPLE, replace=False)]
+            check_pmks(batcher, sample, f"12b {label}")
+        check(cracked == expected, f"12b {label}: cracked {cracked}, planted {expected}")
+        check(out["processed"] == PRECRACK_UNPROCESSED, f"12b {label}: {out}")
+    host = legs["host"]
+    for label in ("card", "card131072"):
+        check(legs[label][3] == host[3], f"12b {label}: nets/rkg rows differ from the host leg")
+        check(legs[label][0] == host[0], f"12b {label}: {legs[label][0]} != host {host[0]}")
+    for label, (out, t, stats, rows, cracked, n) in legs.items():
+        rate = stats["derived"] / t["derive"] if t["derive"] else 0.0
+        print(f"phase 12b {label} (batch {PRECRACK_BATCH if label != 'card131072' else UNIT_BATCH}"
+              f"): {out['processed']} nets, {out['candidates']} candidates "
+              f"({stats['unique']} unique pairs, {stats['derived']} derived, fill "
+              f"{stats['fill']:.4f}), {out['cracked']} cracked; K1 launches {n}; derive "
+              f"{rate:.1f} PMK/s; sweep {t['sweep']:.3f} s = collect {t['collect']:.3f} + "
+              f"derive {t['derive']:.3f} + demux {t['demux']:.3f} [{card}]", flush=True)
+    print(f"phase 12b: database of {PRECRACK_PROCESSED + PRECRACK_UNPROCESSED} nets built in "
+          f"{build_s:.1f} s; nets and rkg rows of both card legs = the host leg's "
+          f"({len(host[3]['nets'])} nets, {len(host[3]['rkg'])} rkg rows); cracked = planted "
+          f"{sorted(expected.values())} [{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_server_system(rng, card):
+    """12c: the port's server on 127.0.0.1 with the ingest pre-crack on the
+    card and the cron layer's pre-crack on a second thread, a capture
+    POSTed, and ``TpuCrackClient.run()`` cracking it over HTTP.  Returns
+    K1's launches."""
+    import socketserver
+    import urllib.request
+    from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.server import Database, ServerCore, jobs, make_wsgi_app
+    from dwpa_tpu_torch.server.__main__ import _start_materializer
+    from dwpa_tpu_torch.server.precrack import PrecrackEngine
+
+    root = CLIENT_DIR / "server"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "dicts").mkdir(parents=True)
+    db = str(root / "wpa.db")
+    serve_core = ServerCore(Database(db), dictdir=str(root / "dicts"), capdir=str(root / "caps"))
+    # nets for the cron thread: each cracked by its Single candidate
+    serve_core.add_hashlines([fleet_net(20_000 + i, b"CronFleet%02d" % i,
+                                        b"cronfleet%02d1" % i) for i in range(SERVER_CRON_NETS)])
+    words = random_words(rng, SERVER_DICT_WORDS - 1, 8, 16)
+    words.insert(SERVER_DICT_WORDS // 2, SERVER_PSK)
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    (root / "dicts" / "server12c.txt.gz").write_bytes(blob)
+    serve_core.add_dict("dict/server12c.txt.gz", "server12c.txt.gz",
+                        hashlib.md5(blob).hexdigest(), len(words))
+    serve_core.precrack = PrecrackEngine(serve_core, batch=PRECRACK_BATCH, device="auto",
+                                         dict_limit=PRECRACK_DICT_LIMIT)
+    verified = []
+    real_prewarm = serve_core.verifier.prewarm
+    serve_core.verifier.prewarm = lambda pairs: (verified.extend(pairs), real_prewarm(pairs))[1]
+
+    class Server(socketserver.ThreadingMixIn, WSGIServer):
+        daemon_threads = True
+
+    class Handler(WSGIRequestHandler):
+        def log_message(self, *args):   # no line per request
+            pass
+
+    srv = make_server("127.0.0.1", 0, make_wsgi_app(serve_core), server_class=Server,
+                      handler_class=Handler)
+    url = f"http://127.0.0.1:{srv.server_port}/"
+    serving = threading.Thread(target=srv.serve_forever, name="dwpa-serve", daemon=True)
+    mat = None
+    cron_out, errors = [], []
+    jobs_core = ServerCore(Database(db), dictdir=str(root / "dicts"), capdir=str(root / "caps"))
+
+    def cron_precrack():
+        try:
+            cron_out.append(jobs.precrack(jobs_core, limit=PRECRACK_LIMIT, batch=PRECRACK_BATCH,
+                                          device="auto", dict_limit=PRECRACK_DICT_LIMIT))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    cap, _ = tfx.make_handshake_capture(SERVER_PSK, SERVER_ESSID, seed="12c")
+    pbkdf2_cuda.LAUNCHES = pbkdf2.CALLS = 0
+    try:
+        serving.start()
+        mat = _start_materializer(serve_core)
+        cron_thread = threading.Thread(target=cron_precrack, name="dwpa-cron")
+        cron_thread.start()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(url, data=cap), timeout=120) as r:
+            ingest = json.loads(r.read())
+        ingest_s = time.perf_counter() - t0
+        cron_thread.join()
+        check(not errors, f"12c cron pre-crack raised {errors}")
+        check(ingest["new"] == 2, f"12c ingest {ingest}")
+        rows = serve_core.db.q("SELECT algo, n_state FROM nets WHERE ssid = ?", (SERVER_ESSID,))
+        check([(r["algo"], r["n_state"]) for r in rows] == [("", 0)] * 2,
+              f"12c capture nets after the ingest pre-crack: {[tuple(r) for r in rows]}")
+        check(serve_core.db.q1("SELECT COUNT(*) c FROM nets WHERE n_state = 1 "
+                               "AND algo = 'Single'")["c"] == SERVER_CRON_NETS,
+              "12c the cron pre-crack did not crack its fleet")
+        precrack_launches = pbkdf2_cuda.LAUNCHES
+        for eng in (serve_core.precrack, jobs_core.precrack):
+            pairs = list(eng.batcher._memo)
+            pick = rng.choice(len(pairs), min(128, len(pairs)), replace=False)
+            check_pmks(eng.batcher, [pairs[i] for i in pick], "12c pre-crack")
+        reg = MetricsRegistry()
+        client = TpuCrackClient(
+            ClientConfig(base_url=url, workdir=str(root / "client"), device="cuda:0",
+                         max_work_units=1),
+            registry=reg, log=lambda msg: print(f"phase 12c client: {msg}", flush=True))
+        t0 = time.perf_counter()
+        done = client.run()
+        run_s = time.perf_counter() - t0
+    finally:
+        if serving.is_alive():
+            srv.shutdown()
+            serving.join(timeout=10)
+        srv.server_close()
+        if mat is not None:
+            mat[1].set()
+            mat[0].join(timeout=5)
+    check(pbkdf2.CALLS == 0, "12c ran the plain PBKDF2")
+    res = client.last_result
+    check(done == 1 and res.accepted, f"12c unit not accepted ({done}, {res})")
+    check(sorted(f.psk for f in res.founds) == [SERVER_PSK] * 2, f"12c founds {res.founds}")
+    check(sum(1 for e, w in verified if (e, w) == (SERVER_ESSID, SERVER_PSK)) >= 1,
+          "12c put_work never re-verified the PSK")
+    rows = serve_core.db.q('SELECT n_state, "pass" FROM nets WHERE ssid = ?', (SERVER_ESSID,))
+    check(all(r["n_state"] == 1 and r["pass"] == SERVER_PSK for r in rows) and len(rows) == 2,
+          f"12c nets {[tuple(r) for r in rows]}")
+    leases = serve_core.db.q("SELECT state FROM leases")
+    check(leases and all(r["state"] == 1 for r in leases), f"12c leases {[tuple(r) for r in leases]}")
+    check(serve_core.db.q1("SELECT COUNT(*) c FROM n2d WHERE hkey IS NOT NULL")["c"] == 0,
+          "12c lease rows still held")
+    p2 = reg.value("dwpa_client_pmk_per_s", **{"pass": "2"})
+    launches = pbkdf2_cuda.LAUNCHES
+    print(f"phase 12c system: capture POSTed to {url} ({ingest}) in {ingest_s:.3f} s beside the "
+          f"cron pre-crack ({cron_out[0]}); pre-crack K1 launches {precrack_launches}; run() "
+          f"{run_s:.3f} s, unit accepted, {len(res.founds)}/2 nets cracked, put_work verified "
+          f"{len(verified)} pairs, lease released; pass-2 {p2 or 0.0:.1f} PMK/s over "
+          f"{res.candidates_tried} candidates; K1 launches in all {launches} [{card}]", flush=True)
+    for c in (serve_core, jobs_core):
+        c.db.close()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_server(dev, rng, card):
+    """Phase 12: the server's pre-crack on the card, then the whole system.
+    Returns (K1 launches of phase 12, K1 ms per 2048-lane launch)."""
+    t12 = time.perf_counter()
+    launches, ms_2048, _, _ = phase_precrack_batcher(dev, rng, card)
+    launches += phase_precrack_sweep(rng, card)
+    launches += phase_server_system(rng, card)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s; server-path K1 launches {launches} "
+          f"[{card}]", flush=True)
+    return launches, ms_2048
+
+
 def main():
     import torch
 
@@ -2011,6 +2527,7 @@ def main():
                        "11d": phase_rbase_client(card, rng, unit_pmk_s)}
     print(f"phase 11: {time.perf_counter() - t11:.1f} s; dict-cache-path K1 launches "
           f"{dcache_launches} [{card}]", flush=True)
+    server_launches, precrack_ms = phase_server(dev, rng, card)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -2039,7 +2556,12 @@ def main():
     print(f"K2 bound: {n_full} threads x ({probe_loop} x {sm_probe.ITERS} + {probe_other}) SASS "
           f"instructions at the issue rate = {k2_bound_ms:.3f} ms; one launch "
           f"{sha1['seconds_1x'] * 1e3:.3f} ms [{card}]", flush=True)
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    b2048 = k1_inst / b * PRECRACK_BATCH / issue_per_s * 1e3
+    print(f"K1 per pre-crack launch: {precrack_ms:.3f} ms at {PRECRACK_BATCH} lanes (its work "
+          f"at the issue rate {b2048:.3f} ms, K1 at {b2048 / precrack_ms:.1%}: {PRECRACK_BATCH} "
+          f"threads fill {PRECRACK_BATCH // 128} of the card's {sms} SMs) against {k1_ms:.3f} ms "
+          f"per {b}-row batch (phase 4) [{card}]", flush=True)
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2056,7 +2578,9 @@ def main():
                              "pmkstore (phase 9a)": store_launches,
                              "pmkstore client (phase 9b)": store_client_launches,
                              "fused (phase 10)": sum(fused_launches.values()),
-                             "dict cache (phase 11)": sum(dcache_launches.values())},
+                             "dict cache (phase 11)": sum(dcache_launches.values()),
+                             "server precrack (phase 12)": server_launches},
+        "precrack_ms": precrack_ms, "precrack_lanes": PRECRACK_BATCH,
     }, {
         "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,

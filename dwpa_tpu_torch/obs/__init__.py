@@ -11,6 +11,8 @@ One observability layer for every process in the system:
   lint rule DW106 enforces it statically).
 - :mod:`.logs` — ``setup_logging()``: the one logging config
   (``DWPA_LOG=json`` for structured lines) every emitter inherits.
+- :mod:`.multihost` — ``is_emitter()``: only rank 0 of a multi-process
+  run emits.
 
 Scrape surface: the server's ``?metrics`` endpoint (server/api.py)
 renders the registry; README "Telemetry" documents metric names and
@@ -19,10 +21,11 @@ label conventions.
 
 from .logs import get_logger, setup_logging
 from .metrics import (DEFAULT_BUCKETS, MetricsRegistry, default_registry)
+from .multihost import is_emitter
 from .spans import Span, SpanTracer, default_tracer
 
 __all__ = [
     "DEFAULT_BUCKETS", "MetricsRegistry", "default_registry",
     "Span", "SpanTracer", "default_tracer",
-    "setup_logging", "get_logger",
+    "setup_logging", "get_logger", "is_emitter",
 ]

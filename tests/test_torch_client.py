@@ -1,4 +1,6 @@
-"""The port's volunteer client against ``dwpa_tpu.server`` over loopback.
+"""The port's volunteer client against ``dwpa_tpu.server`` over loopback
+(and, for the full and the rules round trip, against the port's own
+``dwpa_tpu_torch.server`` too).
 
 ``TpuCrackClient`` of ``dwpa_tpu_torch`` talks to ``make_wsgi_app``
 entirely in-process: a subclass of the port's ``ServerAPI`` whose
@@ -38,6 +40,9 @@ from dwpa_tpu_torch.models import m22000 as tm
 from dwpa_tpu_torch.obs import MetricsRegistry
 from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
 from dwpa_tpu_torch.rules import parse_rules
+from dwpa_tpu_torch.server import Database as TDatabase
+from dwpa_tpu_torch.server import ServerCore as TServerCore
+from dwpa_tpu_torch.server import make_wsgi_app as tmake_wsgi_app
 
 PSK = b"loopback-psk1"
 ESSID = b"LoopbackNet"
@@ -114,6 +119,14 @@ def server(tmp_path):
                       capdir=str(tmp_path / "caps"))
 
 
+@pytest.fixture(params=["jax", "torch"])
+def any_server(request, tmp_path):
+    """A server of either package: the JAX reference or the port's own."""
+    Core, Db = {"jax": (ServerCore, Database), "torch": (TServerCore, TDatabase)}[request.param]
+    return Core(Db(":memory:"), dictdir=str(tmp_path / "dicts"),
+                capdir=str(tmp_path / "caps"))
+
+
 def _add_dict(core, words, name="loop.txt.gz", rules=None):
     os.makedirs(core.dictdir, exist_ok=True)
     blob = gzip.compress(b"\n".join(words) + b"\n")
@@ -136,14 +149,16 @@ def _client(server, tmp_path, registry=None, workdir="work", **cfg_kw):
     cfg_kw.setdefault("device", "cpu")
     cfg = ClientConfig(base_url="http://loopback/",
                        workdir=str(tmp_path / workdir), **cfg_kw)
-    api = LoopbackAPI(make_wsgi_app(server))
+    make_app = tmake_wsgi_app if isinstance(server, TServerCore) else make_wsgi_app
+    api = LoopbackAPI(make_app(server))
     return TpuCrackClient(cfg, api=api, log=lambda *a, **k: None,
                           registry=registry)
 
 
-def test_full_round_trip(server, tmp_path):
+def test_full_round_trip(any_server, tmp_path):
     """get_work -> crack -> put_work: the net ends cracked server-side,
     the potfile records the found, and the lease is closed."""
+    server = any_server
     _ingest(server, [jtfx.make_pmkid_line(PSK, ESSID, seed="rt1"),
                      jtfx.make_eapol_line(PSK, ESSID, keyver=2, seed="rt2")])
     _add_dict(server, [b"nope-000001", PSK, b"nope-000002"])
@@ -474,11 +489,12 @@ def _rules_dicts(server):
     _add_dict(server, words, name="r2.txt.gz", rules="@a\n$1 $2\nu")
 
 
-def test_rules_unit_cracked_and_accepted(server, tmp_path, monkeypatch):
+def test_rules_unit_cracked_and_accepted(any_server, tmp_path, monkeypatch):
     """A unit carrying rules: pass 2 expands every base block on the
     device by the merged rules (the PSK only exists as a mangled word),
     the finds are accepted, and every (word, rule) pair of pass 2 lands
     in exactly one of the rules counters."""
+    server = any_server
     _ingest(server, [jtfx.make_pmkid_line(RULE_PSK, ESSID, seed="ru1"),
                      jtfx.make_eapol_line(RULE_PSK, ESSID, keyver=2, seed="ru2")])
     _rules_dicts(server)

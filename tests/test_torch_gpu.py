@@ -1,7 +1,7 @@
 """The port on a CUDA device: the PBKDF2 kernel, the engine, the SM
 probe kernel, the rule interpreter, the mask generator, the PMK
-store's mixed blocks, mixed-ESSID unit fusion and the packed-dictionary
-cache's warm blocks.
+store's mixed blocks, mixed-ESSID unit fusion, the packed-dictionary
+cache's warm blocks and the server pre-crack's batcher.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -336,3 +336,39 @@ def test_warm_crack_rules_blocks_on_the_card(cuda_device, tmp_path):  # noqa: F8
     assert runs[0] == runs[1] == (
         [(psk, hashlib.pbkdf2_hmac("sha1", psk, essid, 4096, 32))], [(4096, 0), (1916, 1)])
     assert reg.value("dwpa_dictcache_hit_blocks_total") == 2
+
+
+@pytest.mark.gpu
+def test_server_precrack_batcher_on_the_card(cuda_device):  # noqa: F811
+    """The server's ``PmkBatcher`` on ``cuda:0`` (``device="auto"``): one K1
+    launch a wave at the fused widths, hashlib-exact PMKs with duplicates
+    and out-of-range lengths mixed in, and ``verify_batch`` verdicts equal
+    to the host path's over keyver 1/2/3, NC and PMKID items."""
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.server.core import SERVER_NC
+    from dwpa_tpu_torch.server.precrack import PmkBatcher, verify_batch
+
+    rng = np.random.default_rng(12)
+    pairs = [(b"card-net-%d" % int(rng.integers(0, 5)),
+              bytes(rng.integers(33, 127, int(rng.integers(8, 64)), dtype=np.uint8)))
+             for _ in range(300)]
+    batcher = PmkBatcher(device="auto", batch=256)
+    assert batcher.device_enabled()
+    before = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    stats = batcher.prewarm(pairs + pairs[:20] + [(b"card-net-0", b"short")])
+    assert (pbkdf2_cuda.LAUNCHES - before[0], pbkdf2.CALLS) == (2, before[1])
+    assert stats["unique"] == 301 and stats["fill"] == 44 / 128  # waves 256, 44 of 128
+    for essid, word in pairs + [(b"card-net-0", b"short")]:
+        assert batcher.pmk(essid, word) == hashlib.pbkdf2_hmac("sha1", word, essid, 4096, 32)
+
+    psk, essid = b"card-precrack", b"CardPrecrack"
+    items = [
+        (tfx.make_pmkid_line(psk, essid, seed="cp-p"), [b"wrong-one1", psk], None),
+        (tfx.make_eapol_line(psk, essid, keyver=1, seed="cp-1"), [psk], None),
+        (tfx.make_eapol_line(psk, essid, keyver=2, nc_delta=3, seed="cp-n"), [psk], None),
+        (tfx.make_eapol_line(psk, essid, keyver=3, seed="cp-3"), [b"wrong-two2", psk], None),
+        (tfx.make_eapol_line(psk, essid, keyver=2, seed="cp-m"), [b"wrong-3333"], None),
+    ]
+    got = verify_batch(items, nc=SERVER_NC, batcher=PmkBatcher(device="auto"))
+    assert got == verify_batch(items, nc=SERVER_NC)
+    assert [r is not None for r in got] == [True, True, True, True, False]

@@ -270,7 +270,7 @@ def test_crack_rules_and_blocks_match_jax(monkeypatch, skip):
         assert reg.value("dwpa_rules_device_expanded_total") > 0
 
 
-def test_rules_blocks_refuse_cached_base_blocks(monkeypatch):
+def test_rules_blocks_accept_cached_base_blocks(monkeypatch):
     """A pre-split, pre-packed base block (``RulesPrep``, the dict cache's
     ``.rbase`` layout), once refused, now cracks exactly as the raw word
     block it stands for: the same founds and the same on_batch report."""
