@@ -109,6 +109,23 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    ``cuda:0`` cracking its nets over HTTP from a 131072-word dict: the
    unit accepted, the PSKs re-verified by ``put_work``, the lease
    released.
+13. the server's other paths: (a) the Thomson serial sweep on the card
+   over the full default space (years 4-12, weeks 1-53: 22,254,768
+   serials) through ``thomson_candidates`` with no device named, at
+   chunks 2**20 and 2**22, the planted key found, one year equal to the
+   hashlib search list for list, and ``vendor_candidates`` sweeping by
+   default; (b) ``jobs.precrack`` at the server's defaults on a fresh
+   database of Thomson-shaped and plain nets, exactly the nets whose PSK
+   is a planted Thomson key cracked through K1; (c) the chaos soak:
+   phase 6's unit (a 131072-word dict) cracked by ``TpuCrackClient.run()``
+   on the card against the port's server through ``ChaosTransport`` on
+   a virtual clock, fault-free and under a seeded schedule (timeouts,
+   5xx, a torn put_work reply, a reject), with the same founds, rows
+   and resume state; (d) the operator tools through the server CLI on
+   phase 12's 1,000-net database: ``recrack``, ``pack-dict``,
+   ``dedup-dicts``, ``fill-pr --native`` (the native capture parser held
+   to the Python one on the capture corpus), ``pack-client`` twice (the
+   same md5) and the client's ``check_update`` accepting it.
 
 It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -201,6 +218,19 @@ SERVER_CRON_NETS = 24                   # 12c: nets the cron thread's pre-crack 
 SERVER_DICT_WORDS = UNIT_BATCH          # 12c: the unit's dict, 131072 words
 SERVER_PSK = b"h100-server-psk"
 SERVER_ESSID = b"dwpa-torch-server"
+THOMSON_SERIAL = (10, 37, "7QX")        # 13a: the planted serial (yy, ww, code)
+THOMSON_YEARS = range(4, 13)            # the default space: 9 x 53 x 36**3 serials
+THOMSON_WEEKS = range(1, 54)
+THOMSON_CHUNKS = (1 << 20, 1 << 22)
+THOMSON_NETS = [(b"SpeedTouch", (6, 14, "A1B")), (b"Orange-", (9, 40, "Z9Z")),
+                (b"Thomson", (12, 53, "000")), (b"BigPond", None), (b"SpeedTouch", None)]
+THOMSON_PLAIN_NETS = 8                  # 13b: nets that are no vendor's
+CHAOS_DICT_WORDS = UNIT_BATCH           # 13c: phase 6's five nets, one 131072-word dict
+CHAOS_RATE = 0.3
+CHAOS_KINDS = ("drop", "timeout", "http_5xx", "slow")
+TOOLS_CAPTURES = 100                    # 13d: archived captures for fill-pr
+TOOLS_DICT_WORDS = UNIT_BATCH
+TOOLS_CLIENT_VERSION = "999.0.1"
 
 
 def check(cond, msg):
@@ -2446,6 +2476,363 @@ def phase_server(dev, rng, card):
     return launches, ms_2048
 
 
+def spy_thomson():
+    """Wrap the Thomson sweep so a run can show which device it took;
+    returns (the device list, a restore callable)."""
+    from dwpa_tpu_torch.gen import vendors
+    from dwpa_tpu_torch.parallel.device import resolve_device
+
+    real = vendors._thomson_search_device
+    devices = []
+
+    def spied_sweep(target, years, weeks, chunk=1 << 20, compress=None, device=None):
+        devices.append(resolve_device(device))
+        return real(target, years, weeks, chunk=chunk, compress=compress, device=device)
+
+    vendors._thomson_search_device = spied_sweep
+    return devices, lambda: setattr(vendors, "_thomson_search_device", real)
+
+
+def thomson_plant(yy, ww, code):
+    """(SSID suffix, key) of one serial of the Thomson scheme."""
+    from dwpa_tpu_torch.gen import vendors
+
+    return vendors.thomson_key(vendors._thomson_serial(yy, ww, code))
+
+
+def phase_thomson_sweep(dev, card):
+    """13a: the full default serial space swept on the card through the
+    entry points the server calls, at two chunk sizes; one year against
+    the hashlib search; ``vendor_candidates`` with no budget."""
+    import torch
+
+    from dwpa_tpu_torch.gen import vendors
+
+    sfx, key = thomson_plant(*THOMSON_SERIAL)
+    years, weeks = list(THOMSON_YEARS), list(THOMSON_WEEKS)
+    total = len(years) * len(weeks) * 36 ** 3
+    devices, restore = spy_thomson()
+    sweeps = {}
+    year = THOMSON_SERIAL[0]
+    try:
+        # one year on the card against hashlib first: it also warms the sweep
+        t0 = time.perf_counter()
+        on_card = list(vendors.thomson_candidates(sfx, years=[year], weeks=weeks))
+        year_card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_host = list(vendors.thomson_candidates(sfx, years=[year], weeks=weeks, device=False))
+        year_host_s = time.perf_counter() - t0
+        check(on_card == on_host and key in on_card,
+              f"13a: one-year sweep {on_card} != hashlib {on_host}")
+        for chunk in THOMSON_CHUNKS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if chunk == 1 << 20:   # the default chunk, through the default route
+                keys = list(vendors.thomson_candidates(sfx))
+            else:
+                keys = list(vendors._thomson_search_device(sfx, years, weeks, chunk=chunk,
+                                                           device=dev))
+            torch.cuda.synchronize()
+            sweeps[chunk] = (time.perf_counter() - t0, keys)
+        check(devices == [dev] * (1 + len(THOMSON_CHUNKS)), f"13a: the sweeps took {devices}")
+        check(key in sweeps[1 << 20][1], f"13a: planted key {key} not in {sweeps[1 << 20][1]}")
+        check(all(s[1] == sweeps[1 << 20][1] for s in sweeps.values()),
+              "13a: the sweeps at two chunk sizes differ")
+        pairs = list(vendors.vendor_candidates(bytes.fromhex("00147f010203"),
+                                               b"SpeedTouch" + sfx.encode()))
+        check(("Thomson", key) in pairs and devices[-1] == dev,
+              f"13a: vendor_candidates without a budget gave {pairs[:4]}")
+    finally:
+        restore()
+    rates = {c: total / s for c, (s, _) in sweeps.items()}
+    print(f"phase 13a thomson: {total} serials (years {years[0]}-{years[-1]}, weeks "
+          f"{weeks[0]}-{weeks[-1]}) swept on {dev} for suffix {sfx}: "
+          + "; ".join(f"chunk {c}: {s:.3f} s = {rates[c]:.1f} serials/s, {len(k)} keys"
+                      for c, (s, k) in sweeps.items())
+          + f"; planted key {key.decode()} found; one year ({len(weeks) * 36 ** 3} serials, "
+          f"the first sweep) on {dev} {year_card_s:.3f} s = hashlib {year_host_s:.3f} s, list "
+          f"for list ({len(on_card)} keys); vendor_candidates swept by default on {dev} [{card}]",
+          flush=True)
+
+
+def phase_thomson_precrack(card, device="auto"):
+    """13b: one ``jobs.precrack`` sweep at the server's defaults on a fresh
+    database of Thomson-shaped and plain nets; exactly the nets whose PSK
+    is a planted Thomson key are cracked.  Returns K1's launches."""
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.server import Database, ServerCore
+
+    root = CLIENT_DIR / "thomson"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    lines, expected = [], {}
+    for j, (prefix, serial) in enumerate(THOMSON_NETS):
+        if serial is None:   # Thomson-shaped SSID, PSK no serial gives
+            essid, psk = prefix + b"%06X" % (0xA10000 + j), b"not-a-thomson-%d" % j
+        else:
+            sfx, psk = thomson_plant(*serial)
+            essid = prefix + sfx.encode()
+            expected[essid] = "Thomson"
+        lines.append(fleet_net(30_000 + j, essid, psk, mac_ap=bytes([0, 0x14, 0x7f, 0, 0, j])))
+    for j in range(THOMSON_PLAIN_NETS):
+        lines.append(fleet_net(31_000 + j, b"PlainThomsonRun-%02d" % j, b"plain-miss-%04d" % j))
+    core = ServerCore(Database(str(root / "thomson.db")))
+    check(core.add_hashlines(lines)["new"] == len(lines), "13b ingest")
+    core.db.close()
+    devices, restore = spy_thomson()
+    pbkdf2_cuda.LAUNCHES = pbkdf2.CALLS = 0
+    try:
+        out, t, stats, rows, cracked, batcher, waves = timed_sweep(
+            root / "thomson.db", root / "dicts", PRECRACK_BATCH, device)
+    finally:
+        restore()
+    launches = pbkdf2_cuda.LAUNCHES
+    check(cracked == expected, f"13b: cracked {cracked}, planted {expected}")
+    check(len(devices) == len(THOMSON_NETS), f"13b: {len(devices)} Thomson sweeps")
+    check(pbkdf2.CALLS == 0 and waves > 0 and launches == (waves if device == "auto" else 0),
+          f"13b: {launches} K1 launches for {waves} waves, plain PBKDF2 {pbkdf2.CALLS}")
+    check(out["processed"] == len(lines) and out["cracked"] == len(expected), f"13b: {out}")
+    check_pmks(batcher, list(batcher._memo)[:PRECRACK_SAMPLE], "13b")
+    rate = stats["derived"] / t["derive"] if t["derive"] else 0.0
+    print(f"phase 13b thomson precrack (batch {PRECRACK_BATCH}, limit {PRECRACK_LIMIT}, dict "
+          f"limit {PRECRACK_DICT_LIMIT}): {out['processed']} nets ({len(THOMSON_NETS)} "
+          f"Thomson-shaped, {len(expected)} planted), {out['candidates']} candidates "
+          f"({stats['unique']} unique pairs), cracked = planted {sorted(expected)}; Thomson "
+          f"sweeps {len(devices)} on {sorted(set(map(str, devices)))}; K1 launches {launches}; "
+          f"derive {rate:.1f} PMK/s; sweep {t['sweep']:.3f} s = collect {t['collect']:.3f} + "
+          f"derive {t['derive']:.3f} + demux {t['demux']:.3f} [{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def chaos_server(root, lines, words):
+    """The port's server core over a fresh in-memory database holding
+    ``lines`` and one dict of ``words``."""
+    from dwpa_tpu_torch.server import Database, ServerCore
+
+    core = ServerCore(Database(":memory:"), dictdir=str(root / "dicts"), capdir=str(root / "caps"))
+    core.add_hashlines(lines)
+    core.db.x("UPDATE nets SET algo = ''")
+    (root / "dicts").mkdir(parents=True, exist_ok=True)
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    (root / "dicts" / "chaos13c.txt.gz").write_bytes(blob)
+    core.add_dict("dict/chaos13c.txt.gz", "chaos13c.txt.gz", hashlib.md5(blob).hexdigest(),
+                  len(words))
+    return core
+
+
+def chaos_leg(root, lines, words, plan, label, device):
+    """One ``TpuCrackClient.run()`` of the unit against the port's server
+    through ``ChaosTransport(WsgiTransport(...), plan)`` on a virtual
+    clock, then outbox drains until nothing is pending.  Returns
+    (client, server core, registry, drains, seconds)."""
+    import random
+
+    from dwpa_tpu_torch.chaos import ChaosTransport, VirtualClock, WsgiTransport
+    from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
+    from dwpa_tpu_torch.client.protocol import CircuitBreaker, ServerAPI
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.server import make_wsgi_app
+
+    core = chaos_server(root / label, lines, words)
+    clock = VirtualClock()
+    api = ServerAPI("http://loopback/", max_tries=0, backoff=0.5, rng=random.Random(SEED),
+                    sleep=clock.sleep,
+                    breaker=CircuitBreaker(threshold=3, cooldown=4.0, clock=clock.now))
+    api.retry.clock = clock.now
+    api._transport = ChaosTransport(WsgiTransport(make_wsgi_app(core)), plan, sleep=clock.sleep)
+    reg = MetricsRegistry()
+    client = TpuCrackClient(
+        ClientConfig(base_url="http://loopback/", workdir=str(root / label / "client"),
+                     batch_size=UNIT_BATCH, max_work_units=1, device=device),
+        api=api, registry=reg, log=lambda msg: print(f"phase 13c {label} client: {msg}", flush=True))
+    t0 = time.perf_counter()
+    check(client.run() == 1, f"13c {label}: run() did not complete the unit")
+    drains = 0
+    while client.outbox.pending_count() and drains < 10:
+        drains += 1
+        clock.sleep(api.breaker.cooldown)
+        try:
+            client._drain_outbox()
+        except ConnectionError:
+            continue
+    return client, core, reg, drains, time.perf_counter() - t0
+
+
+def phase_chaos_soak(card, device="cuda:0"):
+    """13c: phase 6's unit (five nets, a 131072-word dict) cracked by the
+    port's client against the port's server, fault-free and under a
+    seeded fault schedule; the same founds, rows and resume state.
+    Returns K1's launches of the chaos leg."""
+    from dwpa_tpu_torch.chaos import FaultPlan, sweep_invariants
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+
+    root = CLIENT_DIR / "chaos"
+    shutil.rmtree(root, ignore_errors=True)
+    lines = unit_lines()
+    raw = [ln for ln, _ in lines]
+    words = random_words(np.random.default_rng(SEED + 13), CHAOS_DICT_WORDS - 1, 8, 20)
+    words.insert(CHAOS_DICT_WORDS // 3, PSK)
+
+    def make_plan():
+        return (FaultPlan(SEED, rate=CHAOS_RATE, kinds=CHAOS_KINDS)
+                .force("get_work", "timeout").force("get_work", "http_5xx")
+                .force("put_work", "truncate").force("put_work", "reject"))
+
+    def outcome(client, core):
+        res = client.last_result
+        return (sorted((f.line.raw, f.psk, f.nc, f.endian) for f in res.founds),
+                sorted(tuple(r) for r in core.db.q('SELECT struct, n_state, "pass", algo FROM nets')),
+                core.db.q1("SELECT COUNT(*) c FROM n2d WHERE hkey IS NOT NULL")["c"],
+                sorted(r["state"] for r in core.db.q("SELECT state FROM leases")),
+                Path(client.resume_path).exists(), client.outbox.pending_count(),
+                res.candidates_tried)
+
+    legs = {}
+    for label, plan in (("fault-free", FaultPlan(SEED)), ("chaos", make_plan())):
+        pbkdf2_cuda.LAUNCHES = pbkdf2.CALLS = 0
+        client, core, reg, drains, secs = chaos_leg(root, raw, words, plan, label, device)
+        legs[label] = (outcome(client, core), plan, reg, drains, secs, pbkdf2_cuda.LAUNCHES)
+        check(pbkdf2.CALLS == 0 or device == "cpu", f"13c {label}: the plain PBKDF2 ran")
+        check_founds(client.last_result.founds, lines, f"13c {label}")
+        check(sweep_invariants(core.db) == [], f"13c {label}: {sweep_invariants(core.db)}")
+        core.db.close()
+    clean, chaos = legs["fault-free"], legs["chaos"]
+    check(chaos[0] == clean[0], f"13c: chaos outcome {chaos[0][1:]} != fault-free {clean[0][1:]}")
+    check(clean[0][2:6] == (0, [1], False, 0), f"13c: rows/resume state {clean[0][2:6]}")
+    plan = chaos[1]
+    check({"timeout", "http_5xx", "truncate", "reject"} <= plan.kinds_injected(),
+          f"13c: injected {plan.kinds_injected()}")
+    check(not clean[1].kinds_injected(), "13c: the fault-free plan injected a fault")
+    replay = make_plan()
+    for _, endpoint, _ in plan.schedule():
+        replay.next_fault(endpoint)
+    check(replay.schedule() == plan.schedule(), "13c: the seed did not replay its schedule")
+    kinds = collections.Counter(k for _, _, k in plan.schedule() if k)
+    retries = sum(s["value"] for s in chaos[2].snapshot().get("dwpa_client_retries_total", {})
+                  .get("samples", ()))
+    print(f"phase 13c chaos soak: {len(lines)} nets, {CHAOS_DICT_WORDS}-word dict, batch "
+          f"{UNIT_BATCH}, on {device}; fault-free run() {clean[4]:.3f} s, K1 launches {clean[5]}; "
+          f"chaos (seed {SEED}, rate {CHAOS_RATE}) run() + {chaos[3]} outbox drains "
+          f"{chaos[4]:.3f} s, {len(plan.schedule())} transport calls, faults by kind "
+          f"{dict(kinds)}, retries {retries:.0f}, K1 launches {chaos[5]}; founds "
+          f"{len(chaos[0][0])}/5, nets rows, n2d, leases and resume state equal to the "
+          f"fault-free run; the seed replays its schedule [{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return chaos[5]
+
+
+def server_cli(argv):
+    """``python -m dwpa_tpu_torch.server <argv>`` in process; returns its
+    JSON output and seconds."""
+    import contextlib
+    import io
+
+    from dwpa_tpu_torch.server.__main__ import main as server_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        server_main([str(a) for a in argv])
+    return json.loads(out.getvalue()), time.perf_counter() - t0
+
+
+def phase_operator_tools(card, device="cuda:0"):
+    """13d: the operator tools through the server CLI on a copy of phase
+    12's 1,000-net database: recrack, pack-dict, dedup-dicts, fill-pr
+    with the native parser (held to the Python parser on the same
+    capture corpus), pack-client and the client's update check."""
+    import io
+    import urllib.parse
+
+    from dwpa_tpu_torch import native
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.chaos import WsgiTransport
+    from dwpa_tpu_torch.client.main import ClientConfig, TpuCrackClient
+    from dwpa_tpu_torch.client.protocol import ServerAPI
+    from dwpa_tpu_torch.server import Database, ServerCore, make_wsgi_app, tools
+    from dwpa_tpu_torch.server.capture import extract_hashlines
+
+    root = CLIENT_DIR / "tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    db = root / "fleet.db"
+    t0 = time.perf_counter()
+    build_precrack_db(db, np.random.default_rng(SEED + 12))
+    build_s = time.perf_counter() - t0
+    captures = []
+    core = ServerCore(Database(str(db)), capdir=str(root / "caps"))
+    for i in range(TOOLS_CAPTURES):
+        blob, _ = tfx.make_handshake_capture(b"tools-psk-%04d" % i, b"ToolsNet-%04d" % i,
+                                             seed=f"13d-{i}", probes=(b"Probe-%d" % i, b"Cafe"))
+        captures.append(blob)
+        core.add_hashlines(extract_hashlines(blob)[0], s_id=core.add_submission(blob))
+    core.db.close()
+    common = ["--db", db, "--dictdir", root / "dicts", "--capdir", root / "caps"]
+
+    recrack, recrack_s = server_cli(["recrack", *common])
+    check(recrack == {"checked": PRECRACK_CRACKED}, f"13d recrack {recrack}")
+    words = random_words(np.random.default_rng(SEED + 14), TOOLS_DICT_WORDS, 8, 20)
+    (root / "words.txt").write_bytes(b"\n".join(words) + b"\n")
+    packed, pack_s = server_cli(["pack-dict", *common, root / "words.txt", "--name", "tools13d"])
+    gz = root / "dicts" / "tools13d.txt.gz"
+    check(packed["dhash"] == hashlib.md5(gz.read_bytes()).hexdigest()
+          and packed["wcount"] == len(words), f"13d pack-dict {packed}")
+    half = TOOLS_DICT_WORDS // 2
+    tools._write_gz(str(root / "dicts" / "second.txt.gz"), words[half:] + [b"second-only-word"])
+    dedup, dedup_s = server_cli(["dedup-dicts", gz, root / "dicts" / "second.txt.gz"])
+    check(dedup[str(root / "dicts" / "second.txt.gz")] == {"before": len(words) - half + 1,
+                                                            "after": 1}, f"13d dedup {dedup}")
+    check(native.load() is not None, "13d: the native capture parser did not load")
+    check(tools.get_extractor(native=True) is native.extract_hashlines_fast,
+          "13d: fill-pr --native would not take the native parser")
+    fill, fill_s = server_cli(["fill-pr", *common, "--native"])
+    check(fill == {"submissions": TOOLS_CAPTURES, "probes": 2 * TOOLS_CAPTURES}, f"13d fill-pr {fill}")
+
+    corpus = captures + [tfx.pcap_bytes(tfx.make_handshake_frames(
+        b"bulk-psk-13d", b"BulkNet", seed="13d-bulk", probes=(b"one", b"two"))[0] * 200)]
+    parsed = {}
+    for name, fn in (("native", native.extract_hashlines_fast), ("python", extract_hashlines)):
+        t0 = time.perf_counter()
+        parsed[name] = ([fn(blob) for blob in corpus], time.perf_counter() - t0)
+    check(parsed["native"][0] == parsed["python"][0], "13d: native parser != Python parser")
+
+    hcdir = root / "hc"
+    pc, pc_s = server_cli(["pack-client", "--hcdir", hcdir, "--version", TOOLS_CLIENT_VERSION])
+    pc2, _ = server_cli(["pack-client", "--hcdir", root / "hc2", "--version", TOOLS_CLIENT_VERSION])
+    check(pc["md5"] == pc2["md5"] == hashlib.md5((hcdir / "dwpa_tpu.pyz").read_bytes()).hexdigest(),
+          f"13d pack-client not deterministic: {pc} {pc2}")
+    api = ServerAPI("http://loopback/", max_tries=1, sleep=lambda s: None)
+    api._transport = WsgiTransport(make_wsgi_app(ServerCore(Database(":memory:"), hcdir=str(hcdir))))
+    client = TpuCrackClient(ClientConfig(base_url="http://loopback/", workdir=str(root / "client"),
+                                         device=device), api=api, log=lambda msg: None)
+    check(client.check_update(), "13d: the client refused the packed update")
+    got = root / "client" / f"dwpa_tpu-{TOOLS_CLIENT_VERSION}.pyz"
+    check(hashlib.md5(got.read_bytes()).hexdigest() == pc["md5"], "13d: update md5")
+    print(f"phase 13d tools: database of {PRECRACK_PROCESSED + PRECRACK_UNPROCESSED} nets built "
+          f"in {build_s:.1f} s; recrack {recrack} in {recrack_s:.3f} s; pack-dict "
+          f"{TOOLS_DICT_WORDS} words in {pack_s:.3f} s; dedup-dicts {dedup_s:.3f} s; fill-pr "
+          f"--native {fill} in {fill_s:.3f} s; capture corpus ({len(corpus)} blobs, "
+          f"{sum(map(len, corpus))} bytes): native {parsed['native'][1]:.4f} s, Python "
+          f"{parsed['python'][1]:.4f} s, equal; pack-client {pc['files']} files md5 {pc['md5']} "
+          f"(twice) in {pc_s:.3f} s, check_update accepted {TOOLS_CLIENT_VERSION} [{card}]",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_ops(dev, card):
+    """Phase 13: the Thomson sweep on the card, a pre-crack that finds
+    Thomson nets, the chaos soak, the operator tools.  Returns K1's
+    launches of 13b and 13c."""
+    t13 = time.perf_counter()
+    phase_thomson_sweep(dev, card)
+    launches = {"13b": phase_thomson_precrack(card), "13c": phase_chaos_soak(card)}
+    phase_operator_tools(card)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s; K1 launches {launches} [{card}]",
+          flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -2528,6 +2915,7 @@ def main():
     print(f"phase 11: {time.perf_counter() - t11:.1f} s; dict-cache-path K1 launches "
           f"{dcache_launches} [{card}]", flush=True)
     server_launches, precrack_ms = phase_server(dev, rng, card)
+    ops_launches = phase_ops(dev, card)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -2561,7 +2949,7 @@ def main():
           f"at the issue rate {b2048:.3f} ms, K1 at {b2048 / precrack_ms:.1%}: {PRECRACK_BATCH} "
           f"threads fill {PRECRACK_BATCH // 128} of the card's {sms} SMs) against {k1_ms:.3f} ms "
           f"per {b}-row batch (phase 4) [{card}]", flush=True)
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2579,7 +2967,9 @@ def main():
                              "pmkstore client (phase 9b)": store_client_launches,
                              "fused (phase 10)": sum(fused_launches.values()),
                              "dict cache (phase 11)": sum(dcache_launches.values()),
-                             "server precrack (phase 12)": server_launches},
+                             "server precrack (phase 12)": server_launches,
+                             "thomson precrack (phase 13b)": ops_launches["13b"],
+                             "chaos client (phase 13c)": ops_launches["13c"]},
         "precrack_ms": precrack_ms, "precrack_lanes": PRECRACK_BATCH,
     }, {
         "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,

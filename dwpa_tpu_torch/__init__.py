@@ -11,7 +11,8 @@ counterpart is easy to find):
 - ``dwpa_tpu_torch.models``   — hashline parsing and the m22000 engine.
 - ``dwpa_tpu_torch.parallel`` — device selection and the crack step.
 - ``dwpa_tpu_torch.oracle``   — the hashlib verification oracle.
-- ``dwpa_tpu_torch.native``   — the C++ candidate packer (ctypes).
+- ``dwpa_tpu_torch.native``   — the C++ candidate packer and capture
+  parser (ctypes).
 - ``dwpa_tpu_torch.gen``      — dictionary streams and candidate generators.
 - ``dwpa_tpu_torch.feed``     — block framing, the threaded candidate feed
   and the CUDA side-stream stager.
@@ -19,6 +20,10 @@ counterpart is easy to find):
 - ``dwpa_tpu_torch.client``   — the volunteer client: challenge gate,
   transport, found outbox, the get_work -> crack -> put_work loop and its
   CLI (``python -m dwpa_tpu_torch.client``).
+- ``dwpa_tpu_torch.server``   — the work server, its pre-crack and its
+  operator tools (``python -m dwpa_tpu_torch.server``).
+- ``dwpa_tpu_torch.chaos``    — seeded fault injection for the transport,
+  the server's database and the filesystem.
 
 32-bit words travel as ``torch.int32`` (addition wraps; logical right
 shifts mask off the sign fill); they are reinterpreted as uint32 only at

@@ -36,7 +36,7 @@ Retry behavior departs from the reference client's flat infinite loop
 
 The single raw HTTP hop lives in :meth:`ServerAPI._transport`; everything
 above it (retry, classification, breaker, telemetry) is pure host logic.
-Tests and the chaos harness (``dwpa_tpu.chaos``) replace ``_transport``
+Tests and the chaos harness (``dwpa_tpu_torch.chaos``) replace ``_transport``
 to inject faults underneath the real retry stack.
 """
 

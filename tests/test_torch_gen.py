@@ -114,24 +114,30 @@ def test_dict_stream_matches_jax(tmp_path, compress, skip, limit):
     (b"eircom1234 5678", "000fcc123456"), (b"CVTV-12", "00250a0b0c0d"),
     (b"Thomson1A2B3C", "00147f010203"), (b"plain-net", "001122334455"),
 ])
-def test_vendor_candidates_match_jax(essid, bssid):
+def test_vendor_candidates_match_jax(essid, bssid, monkeypatch):
     mac = bytes.fromhex(bssid)
     # without a thomson_kw budget neither package sweeps Thomson serials
     # on a host without an accelerator
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     assert list(tvendors.vendor_candidates(mac, essid)) == \
         list(jvendors.vendor_candidates(mac, essid))
 
 
-def test_thomson_host_search_matches_jax_and_device_is_refused():
+def test_thomson_host_search_matches_jax_and_device_routing(monkeypatch):
     serial = tvendors._thomson_serial(8, 22, "AB1")
     sfx, key = tvendors.thomson_key(serial)
     assert (sfx, key) == jvendors.thomson_key(serial)
     kw = dict(years=[8], weeks=[22])
-    got = list(tvendors.thomson_candidates(sfx, **kw))
+    got = list(tvendors.thomson_candidates(sfx, device=False, **kw))
     assert key in got
     assert got == list(jvendors.thomson_candidates(sfx, device=False, **kw))
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    # without a card, device=None takes the hashlib search and device=True
+    # refuses; the sweep itself is held to JAX's in test_torch_thomson.py
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    assert list(tvendors.thomson_candidates(sfx, **kw)) == got
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         list(tvendors.thomson_candidates(sfx, device=True, **kw))
+    assert list(tvendors.thomson_candidates(sfx, device="cpu", **kw)) == got
 
 
 OUTBOX_OPS = [

@@ -1,7 +1,8 @@
 """The port on a CUDA device: the PBKDF2 kernel, the engine, the SM
 probe kernel, the rule interpreter, the mask generator, the PMK
 store's mixed blocks, mixed-ESSID unit fusion, the packed-dictionary
-cache's warm blocks and the server pre-crack's batcher.
+cache's warm blocks, the server pre-crack's batcher and the Thomson
+serial sweep.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -372,3 +373,18 @@ def test_server_precrack_batcher_on_the_card(cuda_device):  # noqa: F811
     got = verify_batch(items, nc=SERVER_NC, batcher=PmkBatcher(device="auto"))
     assert got == verify_batch(items, nc=SERVER_NC)
     assert [r is not None for r in got] == [True, True, True, True, False]
+
+
+@pytest.mark.gpu
+def test_thomson_sweep_on_the_card_matches_cpu(cuda_device):  # noqa: F811
+    """The Thomson serial sweep on ``cuda:0`` equals the CPU sweep and the
+    hashlib search over one (yy, ww) window in three chunks, and
+    ``device=None`` takes the card."""
+    from dwpa_tpu_torch.gen import vendors
+
+    sfx, key = vendors.thomson_key(vendors._thomson_serial(8, 22, "Q7Z"))
+    card = list(vendors._thomson_search_device(sfx, [8], [22], chunk=20_000, device=cuda_device))
+    assert card == list(vendors._thomson_search_device(sfx, [8], [22], chunk=20_000, device="cpu"))
+    assert card == list(vendors.thomson_candidates(sfx, years=[8], weeks=[22], device=False))
+    assert key in card
+    assert list(vendors.thomson_candidates(sfx, years=[8], weeks=[22])) == card

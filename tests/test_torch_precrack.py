@@ -25,8 +25,6 @@ from torch_fixtures import hashlib_pmk
 from torch_jax_refs import jax_xla_pmk
 
 import dwpa_tpu.models.m22000 as jm
-from dwpa_tpu.chaos.dbfault import (DbFaultPlan, SimulatedCrash, install,
-                                    sweep_invariants)
 from dwpa_tpu.obs import MetricsRegistry as JRegistry
 from dwpa_tpu.pmkstore import PMKStore as JPMKStore
 from dwpa_tpu.server import Database as JDatabase
@@ -34,6 +32,8 @@ from dwpa_tpu.server import ServerCore as JServerCore
 from dwpa_tpu.server import precrack as jpc
 from dwpa_tpu.server.core import SERVER_NC as JSERVER_NC
 from dwpa_tpu_torch import testing as tfx
+from dwpa_tpu_torch.chaos.dbfault import (DbFaultPlan, SimulatedCrash, install,
+                                          sweep_invariants)
 from dwpa_tpu_torch.gen.vendors import (easybox_keys, imei_hotspot_keys,
                                         sky_keys)
 from dwpa_tpu_torch.models import m22000 as tm

@@ -10,9 +10,9 @@
   the SQL-default timestamp columns are left out of the row comparison.
 - The capture builders of ``dwpa_tpu_torch.testing``: the same bytes as
   JAX's, and the same hashlines out of both packages' extractors.
-- The CLI: ``serve`` / ``jobs`` argument parsing against JAX's, the
-  real ``jobs``, ``ks-add`` and ``ks-list``, and exit 2 for each
-  operator subcommand that is not ported.
+- The CLI: ``serve`` / ``jobs`` and the eight operator subcommands'
+  argument parsing against JAX's, the real ``jobs``, ``ks-add`` and
+  ``ks-list`` (the tools themselves run in ``test_torch_tools.py``).
 - The analyser's server-only rules (DW114 write atomicity, DW115 no
   scalar oracle loop outside the pre-crack): each port server file,
   linted under its ``dwpa_tpu/server/`` name, has no violation that the
@@ -324,23 +324,32 @@ def test_cli_device_choice_and_real_subcommands(tmp_path, capsys, monkeypatch):
         tmain.main(["jobs", "--db", db + "torch"])
 
 
+TOOL_CMDS = {"recrack": "cmd_recrack", "pack-dict": "cmd_pack_dict",
+             "dedup-dicts": "cmd_dedup_dicts", "fill-pr": "cmd_fill_pr",
+             "enrich": "cmd_enrich", "reorder-captures": "cmd_reorder_captures",
+             "pack-client": "cmd_pack_client", "migrate": "cmd_migrate"}
+
+
 @pytest.mark.parametrize("argv", [
-    ["recrack", "--db", "w.db"],
-    ["pack-dict", "--db", "w.db", "words.txt", "--name", "top"],
-    ["dedup-dicts", "a.txt.gz", "b.txt.gz"],
-    ["fill-pr", "--db", "w.db", "--native"],
-    ["enrich", "--db", "w.db"],
-    ["reorder-captures", "--db", "w.db"],
-    ["pack-client", "--hcdir", "hc"],
-    ["migrate", "--db", "w.db", "legacy.hccapx"],
+    ["recrack", "--db", "w.db", "--limit", "5"],
+    ["pack-dict", "--db", "w.db", "words.txt", "--name", "top", "--default-rules"],
+    ["dedup-dicts", "a.txt.gz", "b.txt.gz", "--db", "w.db"],
+    ["fill-pr", "--db", "w.db", "--native", "--limit", "3"],
+    ["enrich", "--db", "w.db", "--native"],
+    ["reorder-captures", "--db", "w.db", "--capdir", "caps"],
+    ["pack-client", "--hcdir", "hc", "--version", "9.9.9"],
+    ["migrate", "--db", "w.db", "legacy.hccapx", "old.16800", "--no-verify"],
 ], ids=lambda a: a[0])
-def test_cli_defers_operator_tools(capsys, argv):
-    with pytest.raises(SystemExit) as e:
-        tmain.main(argv)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{argv[0]}: the server's operator tools are not ported" in err
-    assert "later slice 13" in err
+def test_cli_tool_subcommands_parse_like_jax(monkeypatch, argv):
+    seen = {}
+    name = TOOL_CMDS[argv[0]]
+    for mod, tag in ((tmain, "torch"), (jmain, "jax")):
+        monkeypatch.setattr(mod, name, lambda a, t=tag: seen.__setitem__(t, vars(a)))
+        mod.main(argv)
+    for args in seen.values():
+        assert args.pop("fn").__name__ == "<lambda>"
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"]["cmd"] == argv[0]
 
 
 # ---------------------------------------------------------------------------
