@@ -126,6 +126,24 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    ``dedup-dicts``, ``fill-pr --native`` (the native capture parser held
    to the Python one on the capture corpus), ``pack-client`` twice (the
    same md5) and the client's ``check_update`` accepting it.
+14. streams, builds and slices: (a) ``crack_streams`` on phase 4's unit
+   with two streams on ``cuda:0`` (each its own thread, CUDA stream and
+   engine) against ``crack_blocks`` on the same blocks: the same founds
+   (PSK, NC, endian, PMK) as phase 4 and the same ``on_batch`` sequence,
+   through K1 only, PMK/s beside phase 4's; then a crash leg, one stream's
+   engine raising on its third block, that block requeued to the other
+   stream and the founds unchanged; (b) ``crack_rules_streams`` on 7b's
+   ``rules_device`` configuration with two streams, 7b's founds; (c) a
+   second ``run()`` of phase 6's unit counting no build in
+   ``dwpa_client_recompiles_total``, and ``watch_compiles`` over a fresh
+   build directory counting one build per library (K1, K2, the two
+   native libraries); (d) a two-process slice, ``python -m
+   dwpa_tpu_torch.client --coordinator 127.0.0.1:<port> --num-processes 2
+   --process-id {0,1} --device cuda:0``, against the port's WSGI server on
+   127.0.0.1 with phase 6's five nets and a 131072-word dict: one
+   ``get_work``, one ``put_work``, every net cracked once, each process's
+   pass-2 K1 launch covering its half of the dict, and rank 0 alone
+   reporting the slice's PMK/s.
 
 It then prints the kernel records as one JSON line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -355,7 +373,7 @@ def phase_unit(dev, rng, card):
     pbkdf2_cuda.LAUNCHES = 0
     pbkdf2.CALLS = 0
     t0 = time.perf_counter()
-    founds = eng.crack(words)
+    unit_founds = founds = eng.crack(words)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
@@ -404,7 +422,7 @@ def phase_unit(dev, rng, card):
           f"parts: {', '.join(parts)}), "
           f"gate {gate_ms:.3f} ms (no-hit batch), decode {decode_ms:.3f} ms (hit batch, "
           f"oracle re-check of 5 nets) [{card}]", flush=True)
-    return launches, k1_ms, pw, step, words, unit_pmk_s
+    return launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds
 
 
 def phase_probe(dev, rng, card):
@@ -808,7 +826,7 @@ def phase_rules_engine(dev, rng, card, expand_ms):
           f"{eng.stage_times}; {per_rule_ms:.3f} ms per rule batch, expand {expand_ms:.3f} ms "
           f"= {expand_ms / per_rule_ms:.2%} of it; K1 vs plain on the expanded [{UNIT_BATCH}, 16] "
           f"batch exact at 2 iterations, vs hashlib on 64 rows at 4096 [{card}]", flush=True)
-    return launches, err
+    return launches, err, founds, n / wall
 
 
 def rules_unit(rng, n_words=RULES_UNIT_WORDS):
@@ -2833,6 +2851,328 @@ def phase_ops(dev, card):
     return launches
 
 
+SLICE_BATCH = UNIT_BATCH // 2            # 14d: each process's share of one global block
+SLICE_DICT_WORDS = UNIT_BATCH            # 14d: one global block, half per process
+SLICE_PLANT_AT = 100_000                 # 14d: in process 1's share
+SLICE_TIMEOUT_S = 400
+SLICE_DEVICE = "cuda:0"                  # 14d: both processes share the one card
+#: 14d: runs ``python -m dwpa_tpu_torch.client <args>`` in this process,
+#: counting K1 launches (all, and from pass 2 on) and pass 2's valid rows.
+SLICE_LAUNCHER = """
+import atexit, json, runpy, sys
+from dwpa_tpu_torch.client import main as cm
+from dwpa_tpu_torch.models import m22000 as tm
+from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+seen = {"k1_before_pass2": None, "pass2_rows": 0}
+real_fetch, real_dispatch = cm.TpuCrackClient._fetch_pass2_paths, tm.M22000Engine._dispatch
+def fetch(self, work):
+    seen["k1_before_pass2"] = pbkdf2_cuda.LAUNCHES
+    return real_fetch(self, work)
+def dispatch(self, prep):
+    if seen["k1_before_pass2"] is not None:
+        seen["pass2_rows"] += prep[1]
+    return real_dispatch(self, prep)
+cm.TpuCrackClient._fetch_pass2_paths, tm.M22000Engine._dispatch = fetch, dispatch
+atexit.register(lambda: print("SLICE_COUNTS " + json.dumps({
+    "launches": pbkdf2_cuda.LAUNCHES, "plain_calls": pbkdf2.CALLS,
+    "pass2_launches": pbkdf2_cuda.LAUNCHES - (seen["k1_before_pass2"] or 0),
+    "pass2_rows": seen["pass2_rows"]}), flush=True))
+sys.argv = ["dwpa_tpu_torch.client"] + sys.argv[1:]
+runpy.run_module("dwpa_tpu_torch.client", run_name="__main__", alter_sys=True)
+"""
+
+
+def found_keys(founds):
+    return sorted((f.line.raw, f.psk, f.nc, f.endian, f.pmk) for f in founds)
+
+
+def phase_streams_unit(dev, card, words, unit_founds, unit_pmk_s):
+    """14a: crack_streams on phase 4's unit with two streams on the card
+    against crack_blocks on the same blocks, then a crash leg.  Returns
+    K1's launches of the stream run."""
+    import torch
+
+    from dwpa_tpu_torch.feed import frame_blocks
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.parallel.streams import device_label
+
+    raw = [ln for ln, _ in unit_lines()]
+    want = found_keys(unit_founds)
+
+    def log_into(into):
+        return lambda c, f: into.append((c, sorted(x.psk for x in f)))
+
+    lock_log = []
+    eng = M22000Engine(raw, batch_size=UNIT_BATCH, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lock = eng.crack_blocks(frame_blocks(iter(words), UNIT_BATCH), on_batch=log_into(lock_log))
+    lock_s = time.perf_counter() - t0
+    check(found_keys(lock) == want, "14a crack_blocks founds != phase 4's")
+
+    reg = MetricsRegistry()
+    st_log = []
+    eng = M22000Engine(raw, batch_size=UNIT_BATCH, device=dev)
+    torch.cuda.synchronize()
+    pbkdf2_cuda.LAUNCHES = pbkdf2.CALLS = 0
+    t0 = time.perf_counter()
+    founds = eng.crack_streams(frame_blocks(iter(words), UNIT_BATCH), on_batch=log_into(st_log),
+                               devices=[dev, dev], registry=reg)
+    streams_s = time.perf_counter() - t0
+    launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    check(found_keys(founds) == want, "14a crack_streams founds != phase 4's (PSK, NC, endian, PMK)")
+    check(st_log == lock_log, f"14a on_batch {st_log} != crack_blocks' {lock_log}")
+    check(launches == UNIT_WORDS // UNIT_BATCH and plain_calls == 0,
+          f"14a K1 launches {launches}, plain PBKDF2 calls {plain_calls}")
+    check(not [t for t in threading.enumerate() if t.name.startswith("stream-")],
+          "14a left a stream thread running")
+    blocks = reg.value("dwpa_stream_blocks_total", device=device_label(dev))
+    check(blocks == UNIT_WORDS // UNIT_BATCH, f"14a stream blocks {blocks}")
+    print(f"phase 14a streams: phase 4's unit ({UNIT_WORDS} words, 5 nets) on 2 streams on "
+          f"{dev} in {streams_s:.3f} s = {UNIT_WORDS / streams_s:.1f} PMK/s against crack_blocks "
+          f"{lock_s:.3f} s = {UNIT_WORDS / lock_s:.1f} PMK/s and phase 4's crack "
+          f"{unit_pmk_s:.1f} PMK/s; founds and on_batch sequence equal; K1 launches {launches}, "
+          f"plain PBKDF2 calls {plain_calls}; stream blocks {blocks} [{card}]", flush=True)
+
+    # -- the crash leg: the first stream's engine raises on its third block
+    # (its methods are wrapped per instance; a subclass overriding the
+    # engine's method names would add definitions the analyser resolves
+    # calls by)
+    made, crashed_at, survivor_blocks = [], [], []
+
+    def factory(device):
+        eng = M22000Engine(raw, batch_size=UNIT_BATCH, device=device)
+        real_prepare, real_dispatch = eng._prepare_block, eng._dispatch
+        offsets = []
+        if not made:
+            def prepare_counted(block, stager=None):
+                offsets.append(block.offset)
+                return real_prepare(block, stager)
+
+            def dispatch_or_crash(prep):
+                if len(offsets) == 3:
+                    crashed_at.append(offsets[-1])
+                    raise RuntimeError("injected stream fault on the third block")
+                return real_dispatch(prep)
+
+            eng._prepare_block, eng._dispatch = prepare_counted, dispatch_or_crash
+        else:
+            def prepare_late(block, stager=None):
+                if not survivor_blocks:
+                    time.sleep(0.3)   # the crashing stream takes the first blocks
+                survivor_blocks.append(block.offset)
+                return real_prepare(block, stager)
+
+            eng._prepare_block = prepare_late
+        made.append(eng)
+        return eng
+
+    crash_log = []
+    eng = M22000Engine(raw, batch_size=UNIT_BATCH, device=dev)
+    t0 = time.perf_counter()
+    founds = eng.crack_streams(frame_blocks(iter(words), UNIT_BATCH), on_batch=log_into(crash_log),
+                               devices=[dev, dev], engine_factory=factory)
+    crash_s = time.perf_counter() - t0
+    check(len(crashed_at) == 1 and crashed_at[0] in survivor_blocks,
+          f"14a the crashed block {crashed_at} was not requeued to the survivor {survivor_blocks}")
+    check(found_keys(founds) == want and crash_log == lock_log,
+          "14a crash leg: founds or on_batch changed")
+    print(f"phase 14a crash leg: stream 0 raised on its third block (offset {crashed_at[0]}), "
+          f"requeued and cracked by stream 1 (its blocks at offsets {survivor_blocks}); founds "
+          f"and on_batch sequence unchanged; {crash_s:.3f} s [{card}]", flush=True)
+    return launches
+
+
+def phase_rules_streams(dev, card, rules_founds, rules_rate):
+    """14b: crack_rules_streams on 7b's rules_device configuration with two
+    streams on the card; the founds equal 7b's.  Returns K1's launches."""
+    import torch
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.feed import frame_blocks
+    from dwpa_tpu_torch.models.m22000 import M22000Engine
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+    from dwpa_tpu_torch.rules import parse_rules
+
+    rules = parse_rules(RULES_DEVICE)
+    base = [b"devrule%07d" % i for i in range(UNIT_BATCH * RULES_FLUSHES)]
+    psk = rules[-1].apply(base[-1])
+    eng = M22000Engine([tfx.make_pmkid_line(psk, b"bench-essid", seed="rulesdev")],
+                       batch_size=UNIT_BATCH, device=dev)
+    torch.cuda.synchronize()
+    pbkdf2_cuda.LAUNCHES = pbkdf2.CALLS = 0
+    log = []
+    t0 = time.perf_counter()
+    founds = eng.crack_rules_streams(frame_blocks(iter(base), UNIT_BATCH), rules,
+                                     on_batch=lambda c, f: log.append(c), devices=[dev, dev])
+    wall = time.perf_counter() - t0
+    launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    check(found_keys(founds) == found_keys(rules_founds), "14b founds != 7b's")
+    check(log == [UNIT_BATCH * len(rules)] * RULES_FLUSHES, f"14b on_batch {log}")
+    check(launches == len(rules) * RULES_FLUSHES and plain_calls == 0,
+          f"14b K1 launches {launches}, plain PBKDF2 calls {plain_calls}")
+    n = len(base) * len(rules)
+    print(f"phase 14b rules streams: 7b's configuration on 2 streams on {dev}, {n} candidates "
+          f"in {wall:.3f} s = {n / wall:.1f} candidates/s against 7b's {rules_rate:.1f}; founds "
+          f"equal 7b's; K1 launches {launches}, plain PBKDF2 calls {plain_calls} [{card}]",
+          flush=True)
+    return launches
+
+
+def phase_builds(card, words):
+    """14c: a second ``run()`` of phase 6's unit counts no build; the
+    build sentinel over a fresh build directory counts one per library."""
+    from dwpa_tpu_torch import native
+    from dwpa_tpu_torch.analysis import watch_compiles
+    from dwpa_tpu_torch.ops import _gxx, _nvcc, pbkdf2_cuda, sm_probe
+
+    lines = unit_lines()
+    raw = [ln for ln, _ in lines]
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    server = stub_server(raw)(blob, hashlib.md5(blob).hexdigest())
+    root = CLIENT_DIR / "builds"
+    shutil.rmtree(root, ignore_errors=True)
+    client, reg = make_client(server, root / "unit", 1, "second run()", phase="phase 14c")
+    check(client.run() == 1 and client.last_result.accepted, "14c unit not accepted")
+    check_founds(client.last_result.founds, lines, "phase 14c")
+    recompiles = reg.value("dwpa_client_recompiles_total") or 0
+    check(recompiles == 0, f"14c the second run() counted {recompiles} builds")
+    native_dir = Path(native.__file__).resolve().parent
+    fresh = root / "fresh-build"
+    t0 = time.perf_counter()
+    with watch_compiles() as cold:
+        _nvcc.build(pbkdf2_cuda.SOURCE, sm_probe.SOURCE, build_dir=fresh)
+        for src in ("pack_fast.cpp", "capture_fast.cpp"):
+            _gxx.build(native_dir / src, fresh)
+    cold_s = time.perf_counter() - t0
+    with watch_compiles() as warm:
+        _nvcc.build(pbkdf2_cuda.SOURCE, sm_probe.SOURCE, build_dir=fresh)
+        for src in ("pack_fast.cpp", "capture_fast.cpp"):
+            _gxx.build(native_dir / src, fresh)
+    check(cold.count == 4 and warm.count == 0, f"14c builds counted {cold} then {warm}")
+    print(f"phase 14c builds: a second run() of phase 6's unit counted "
+          f"dwpa_client_recompiles_total {recompiles:.0f}; a fresh build directory counted "
+          f"{cold.count} builds ({', '.join(cold.names)}) in {cold_s:.1f} s, then {warm.count} "
+          f"[{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_slice(rng, card):
+    """14d: a two-process slice of the client CLI on the card against the
+    port's WSGI server on 127.0.0.1.  Returns K1's launches over both
+    processes."""
+    import os
+    import socket
+    import socketserver
+    import subprocess
+    from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
+
+    from dwpa_tpu_torch.server import Database, ServerCore, make_wsgi_app
+
+    root = CLIENT_DIR / "slice"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "dicts").mkdir(parents=True)
+    core = ServerCore(Database(str(root / "wpa.db")), dictdir=str(root / "dicts"),
+                      capdir=str(root / "caps"))
+    lines = unit_lines()
+    core.add_hashlines([ln for ln, _ in lines])
+    core.db.x("UPDATE nets SET algo = ''")
+    words = random_words(rng, SLICE_DICT_WORDS, 8, 20)
+    words[SLICE_PLANT_AT] = PSK
+    blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
+    (root / "dicts" / "slice14d.txt.gz").write_bytes(blob)
+    core.add_dict("dict/slice14d.txt.gz", "slice14d.txt.gz", hashlib.md5(blob).hexdigest(),
+                  len(words))
+    hits = {"get_work": 0, "put_work": 0}
+    app = make_wsgi_app(core)
+
+    def counting_app(environ, start_response):
+        q = environ.get("QUERY_STRING", "")
+        for k in hits:
+            if k in q:
+                hits[k] += 1
+        return app(environ, start_response)
+
+    class Server(socketserver.ThreadingMixIn, WSGIServer):
+        daemon_threads = True
+
+    class Handler(WSGIRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    srv = make_server("127.0.0.1", 0, counting_app, server_class=Server, handler_class=Handler)
+    serving = threading.Thread(target=srv.serve_forever, name="dwpa-serve", daemon=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = sk.getsockname()[1]
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        serving.start()
+        for pid in (0, 1):
+            args = ["--url", f"http://127.0.0.1:{srv.server_port}/", "--workdir",
+                    str(root / f"p{pid}"), "-n", "1", "-b", str(SLICE_BATCH),
+                    "--coordinator", f"127.0.0.1:{coord}", "--num-processes", "2",
+                    "--process-id", str(pid), "--device", SLICE_DEVICE]
+            procs.append(subprocess.Popen([sys.executable, "-c", SLICE_LAUNCHER, *args],
+                                          cwd=str(repo), env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=SLICE_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        srv.shutdown()
+        serving.join(timeout=10)
+        srv.server_close()
+    wall = time.perf_counter() - t0
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"14d process {pid} exited {p.returncode}:\n{out[-3000:]}")
+    counts = [json.loads(next(x for x in out.splitlines() if x.startswith("SLICE_COUNTS "))
+                         [len("SLICE_COUNTS "):]) for out in outs]
+    check(hits == {"get_work": 1, "put_work": 1}, f"14d server calls {hits}")
+    rows = core.db.q('SELECT n_state, "pass" FROM nets')
+    check(len(rows) == len(lines) and all(r["n_state"] == 1 and r["pass"] == PSK for r in rows),
+          f"14d nets {[tuple(r) for r in rows]}")
+    for pid, c in enumerate(counts):
+        check(c["plain_calls"] == 0 and c["launches"] > 0, f"14d process {pid} counts {c}")
+        check(c["pass2_rows"] == SLICE_DICT_WORDS // 2 and c["pass2_launches"] == 1,
+              f"14d process {pid}'s pass 2 did not take half the blocks: {c}")
+        pot = (root / f"p{pid}" / "potfile").read_text().splitlines()
+        check(len(pot) == len(lines), f"14d process {pid} potfile {pot}")
+    slice_lines = [[x for x in out.splitlines() if "slice PMK/s" in x] for out in outs]
+    check(len(slice_lines[0]) == 1 and not slice_lines[1],
+          f"14d slice PMK/s lines: {slice_lines}")
+    launches = sum(c["launches"] for c in counts)
+    print(f"phase 14d slice: 2 processes of `python -m dwpa_tpu_torch.client` on {SLICE_DEVICE} "
+          f"(gloo over 127.0.0.1), {len(lines)} nets, a {SLICE_DICT_WORDS}-word dict at batch "
+          f"{SLICE_BATCH}; one get_work, one put_work; every net cracked once, both processes "
+          f"decoded all 5; K1 launches per process {[c['launches'] for c in counts]}, pass 2 "
+          f"{[c['pass2_launches'] for c in counts]} launches over {[c['pass2_rows'] for c in counts]}"
+          f" rows; rank 0: {slice_lines[0][0].strip()}; {wall:.1f} s [{card}]", flush=True)
+    core.db.close()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_slices(dev, rng, card, words, unit_founds, unit_pmk_s, rules_founds, rules_rate):
+    """Phase 14: per-device streams, the build sentinel and a two-process
+    slice, all through K1.  Returns K1's launches of 14a, 14b and 14d."""
+    t14 = time.perf_counter()
+    launches = {"14a": phase_streams_unit(dev, card, words, unit_founds, unit_pmk_s),
+                "14b": phase_rules_streams(dev, card, rules_founds, rules_rate)}
+    phase_builds(card, words)
+    launches["14d"] = phase_slice(rng, card)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s; K1 launches {launches} [{card}]",
+          flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -2874,7 +3214,7 @@ def main():
     check(pbkdf2_cuda.LAUNCHES > 0 and pbkdf2.CALLS == 0, "challenge bypassed the kernel")
     print("phase 3 challenge: passed (aaaa1234 on the PMKID and EAPOL lines)", flush=True)
 
-    launches, k1_ms, pw, step, words, unit_pmk_s = phase_unit(dev, rng, card)
+    launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds = phase_unit(dev, rng, card)
 
     # The plain version at the main path's shape, on the same batch.
     pmk_kernel = step.compute_pmk(pw)
@@ -2889,7 +3229,8 @@ def main():
     res, probe_launches, probe_err, probe_plain_ms = phase_probe(dev, rng, card)
     client_launches, phase6_p2 = phase_client(card, words, unit_pmk_s)
     expand_ms = phase_expand(dev, rng, card)
-    rules_launches, rules_err = phase_rules_engine(dev, rng, card, expand_ms)
+    rules_launches, rules_err, rules_founds, rules_rate = phase_rules_engine(
+        dev, rng, card, expand_ms)
     err = max(err, rules_err)
     rules_client_launches = phase_rules_client(card, rng, unit_pmk_s)
     phase_mask_words(dev, card)
@@ -2916,6 +3257,8 @@ def main():
           f"{dcache_launches} [{card}]", flush=True)
     server_launches, precrack_ms = phase_server(dev, rng, card)
     ops_launches = phase_ops(dev, card)
+    slice_launches = phase_slices(dev, rng, card, words, unit_founds, unit_pmk_s,
+                                  rules_founds, rules_rate)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -2949,7 +3292,7 @@ def main():
           f"at the issue rate {b2048:.3f} ms, K1 at {b2048 / precrack_ms:.1%}: {PRECRACK_BATCH} "
           f"threads fill {PRECRACK_BATCH // 128} of the card's {sms} SMs) against {k1_ms:.3f} ms "
           f"per {b}-row batch (phase 4) [{card}]", flush=True)
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2969,7 +3312,10 @@ def main():
                              "dict cache (phase 11)": sum(dcache_launches.values()),
                              "server precrack (phase 12)": server_launches,
                              "thomson precrack (phase 13b)": ops_launches["13b"],
-                             "chaos client (phase 13c)": ops_launches["13c"]},
+                             "chaos client (phase 13c)": ops_launches["13c"],
+                             "streams (phase 14a)": slice_launches["14a"],
+                             "rules streams (phase 14b)": slice_launches["14b"],
+                             "two-process slice (phase 14d)": slice_launches["14d"]},
         "precrack_ms": precrack_ms, "precrack_lanes": PRECRACK_BATCH,
     }, {
         "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,

@@ -5,22 +5,18 @@ Flag set mirrors the reference client's argparse surface
 path, plus engine knobs and ``--device`` (default ``cuda:0``; the client
 refuses to start without a card unless ``--device cpu`` is given).
 
-The JAX client's flags for features the port does not have yet are
-accepted by the parser and refused with a message naming the missing
-piece, so a volunteer's command line never silently loses a knob.
+A multi-process slice (one volunteer over several processes, each on its
+``--device``) joins a ``torch.distributed`` gloo group before any engine
+work: ``--coordinator host:port --num-processes N --process-id I`` on
+every process (process 0 serves the rendezvous), or ``--multihost`` with
+``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` in the
+environment, as ``torchrun`` sets them.
 """
 
 import argparse
+import os
 
 from .main import ClientConfig, TpuCrackClient
-
-#: flag dest -> (flag, what is missing)
-DEFERRED = {
-    "multihost": ("--multihost", "multi-host slices (ROADMAP later slice 10)"),
-    "coordinator": ("--coordinator", "multi-host slices (ROADMAP later slice 10)"),
-    "num_processes": ("--num-processes", "multi-host slices (ROADMAP later slice 10)"),
-    "process_id": ("--process-id", "multi-host slices (ROADMAP later slice 10)"),
-}
 
 
 def build_parser():
@@ -79,8 +75,10 @@ def build_parser():
                         "batch (one salt-table row per ESSID)")
     p.add_argument("--device-streams", choices=("auto", "on", "off"),
                    default="auto",
-                   help="'on' (independent per-device streams) is not "
-                        "ported yet; auto/off crack on the one device")
+                   help="independent per-device crack streams instead of "
+                        "lockstep dispatch; auto = on for one process with "
+                        "several CUDA devices, lockstep otherwise (one "
+                        "card: one stream on cuda:0 with 'on')")
     p.add_argument("--max-tries", type=int, default=0,
                    help="transport attempts per server call before giving "
                         "up (0 = retry forever, reference behavior)")
@@ -99,12 +97,16 @@ def build_parser():
                    help="extra work units leased ahead while the server "
                         "is reachable and cracked while the transport "
                         "circuit is OPEN (degraded mode; 0 = off)")
-    for dest, (flag, _) in DEFERRED.items():
-        if dest == "multihost":
-            p.add_argument(flag, dest=dest, action="store_true",
-                           help="not ported yet")
-        else:
-            p.add_argument(flag, dest=dest, default=None, help="not ported yet")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed slice (gloo) through "
+                        "env:// before any engine work; the slice then acts "
+                        "as ONE volunteer — process 0 owns the server "
+                        "conversation")
+    p.add_argument("--coordinator",
+                   help="slice coordinator host:port (implies --multihost; "
+                        "pair with --num-processes and --process-id)")
+    p.add_argument("--num-processes", type=int, help="slice size")
+    p.add_argument("--process-id", type=int, help="this process's rank")
     return p
 
 
@@ -114,12 +116,24 @@ def main(argv=None):
     setup_logging()  # console format preserved; DWPA_LOG=json for pipelines
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (flag, missing) in DEFERRED.items():
-        if getattr(args, dest) not in (None, False):
-            parser.error(f"{flag}: {missing} is not ported to dwpa_tpu_torch yet")
-    if args.device_streams == "on":
-        parser.error("--device-streams on: per-device streams are not ported "
-                     "to dwpa_tpu_torch yet (ROADMAP later slice 6)")
+    manual = (args.coordinator, args.num_processes, args.process_id)
+    if args.multihost or any(v is not None for v in manual):
+        if any(v is not None for v in manual) and None in manual:
+            parser.error("--coordinator, --num-processes and --process-id "
+                         "must be given together for a manual slice")
+        from ..parallel.mesh import ENV_VARS, multihost_mesh
+
+        missing = [v for v in ENV_VARS if v not in os.environ]
+        if args.coordinator is None and missing:
+            parser.error(f"--multihost joins through env:// and needs "
+                         f"{', '.join(missing)}; or pass --coordinator, "
+                         "--num-processes and --process-id")
+        # Before any engine work; a rendezvous that gets no answer within
+        # the slice timeout raises (there is no single-process fallback).
+        multihost_mesh(coordinator=args.coordinator,
+                       num_processes=args.num_processes,
+                       process_id=args.process_id, auto_init=True,
+                       device=args.device)
     cfg = ClientConfig(
         base_url=args.url,
         workdir=args.workdir,
@@ -147,6 +161,9 @@ def main(argv=None):
         device=args.device,
     )
     TpuCrackClient(cfg).run()
+    from ..parallel.mesh import leave_slice
+
+    leave_slice()
 
 
 if __name__ == "__main__":

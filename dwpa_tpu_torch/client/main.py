@@ -34,10 +34,23 @@ persistent PMK store (``dwpa_tpu_torch.pmkstore``); with
 pass from the packed-dictionary cache (``feed.dictcache``: pre-packed
 rows, or pre-split rules bases, from an mmap; a resume is an index seek).
 
-Single process, single device.  What the port does not do yet is refused
-loudly at construction, never approximated: forced device streams
-(ROADMAP later slice 6).  ``fused_executor`` cracks a stream of small
-units as fused mixed-ESSID batches (``sched/``).
+Bulk passes run lockstep on the client's device, or as independent
+per-device streams (``device_streams``: ``"on"``, ``"off"``, or
+``"auto"`` = ``parallel.streams.streams_default()``, which is off on a
+one-card host).  ``fused_executor`` cracks a stream of small units as
+fused mixed-ESSID batches (``sched/``).  Every unit runs under the build
+sentinel (``analysis.recompile.watch_compiles``): a kernel or native
+library built inside a unit counts in ``dwpa_client_recompiles_total``.
+
+Multi-process slices (``parallel/mesh.py``, ``torch.distributed`` over
+gloo): the processes act as ONE volunteer.  Process 0 alone talks to the
+server (update probe, resume read, get_work, prdict, put_work) and
+broadcasts each outcome, so every process cracks the same unit on its
+own device; dict downloads stay per process (md5-pinned).  Pass 1 runs
+replicated, pass 2 shards for real (without rules through the feed's
+sharded framing, with rules through the flat ``crack_rules``), and every
+batch's hits gate is global.  Every agreement helper is a collective
+that every process must reach.
 """
 
 import base64
@@ -49,14 +62,20 @@ import time
 from dataclasses import dataclass
 
 from .. import __version__
+from ..analysis.recompile import watch_compiles
 from ..feed import CandidateFeed, DictCache, DictFeedSource, RulesFeedSource
+from ..feed.framing import frame_blocks
 from ..gen import DictStream, psk_candidates
 from ..gen.mask import mask_blocks
 from ..models import hashline as hl
 from ..models.m22000 import M22000Engine
-from ..obs import SpanTracer, default_registry, get_logger, setup_logging
+from ..obs import (SpanTracer, default_registry, get_logger, is_emitter,
+                   merged_slice_snapshot, setup_logging)
 from ..oracle import m22000 as oracle
 from ..parallel.device import resolve_device
+from ..parallel.mesh import (allgather_host, broadcast_host, process_count,
+                             process_index)
+from ..parallel.streams import default_feed_workers, streams_default
 from ..pmkstore import PMKStore
 from ..rules import apply_rules, parse_rules
 from ..sched import MultiUnitExecutor
@@ -75,6 +94,66 @@ PACE_TARGET_S = 900.0  # work-unit pacing target (reference autotune threshold)
 #: package is never replayed by the other (stream order is only sound
 #: against the exact build that wrote it, see ``_write_resume``).
 RESUME_VERSION = f"{__version__}+torch"
+
+
+def _broadcast_json(obj):
+    """Process 0's JSON-serializable ``obj`` (or None) on every process.
+
+    The slice contract: exactly one process talks to the server per
+    decision, and every process must then act on IDENTICAL data or the
+    next collective pairs different batches.  Two fixed-shape broadcasts:
+    the byte length (-1 = None), then the padded payload — a broadcast
+    needs equal shapes on every process, so the length is agreed before
+    the buffer exists.
+    """
+    import numpy as np
+
+    data = b"" if obj is None else json.dumps(obj).encode()
+    first = process_index() == 0
+    n = int(broadcast_host(np.asarray(
+        [-1 if first and obj is None else len(data)], np.int64))[0])
+    if n < 0:
+        return None
+    buf = np.zeros(n, np.uint8)
+    if first:
+        buf[:n] = np.frombuffer(data, np.uint8)
+    buf = broadcast_host(buf)
+    return json.loads(buf.tobytes().decode())
+
+
+def _allgather_strs(s: str, width: int = 256):
+    """Every process's (truncated) string, in rank order.
+
+    The fixed width keeps the allgather's equal-shape contract without a
+    length negotiation; used for slice-wide agreement checks (versions,
+    digests, error flags) where every process MUST reach the collective —
+    a raise before it would strand the peers inside it.
+    """
+    import numpy as np
+
+    buf = np.zeros(width, np.uint8)
+    b = (s or "").encode()[:width]
+    buf[: len(b)] = np.frombuffer(b, np.uint8)
+    rows = allgather_host(buf).reshape(-1, width)
+    return [bytes(r).rstrip(b"\0").decode("utf-8", "replace") for r in rows]
+
+
+def shard_word_blocks(words, nproc: int, pid: int, batch_size: int,
+                      pad_word: bytes = b""):
+    """Block-slice a GLOBAL word stream into this process's 1/nproc
+    share, yielding ``(host_words, global_count)`` per block.
+
+    Every process consumes the identical global stream, takes its
+    contiguous ``ceil(len(block) / nproc)`` slice of each ``batch_size x
+    nproc`` block, and pads short slices with an invalid word, so every
+    process feeds the engine the same number of same-sized batches.
+    ``global_count`` is the number of real global candidates the block
+    covers, so resume checkpoints count stream positions, not local
+    rows.  The framing itself is ``feed.framing.frame_blocks``.
+    """
+    for blk in frame_blocks(words, batch_size, nproc=nproc, pid=pid,
+                            pad_word=pad_word):
+        yield blk.words, blk.count
 
 
 def version_tuple(v: str):
@@ -104,7 +183,8 @@ class ClientConfig:
     feed_depth: int = 2             # candidate-feed queue depth (blocks
                                     # framed ahead of the engine)
     feed_workers: int = None        # candidate-feed producer threads
-                                    # (None = one, for the one device;
+                                    # (None = one per local CUDA device,
+                                    # parallel.streams.default_feed_workers;
                                     # 0 = inline/synchronous feed)
     archive: bool = True            # append-only archive.22000/archive.res
                                     # audit logs (DAW, help_crack.py:453-456)
@@ -125,9 +205,11 @@ class ClientConfig:
     fuse_max_units: int = 8         # --fuse-max-units: max work units
                                     # packed into one fused device batch
                                     # (one salt-table row per ESSID)
-    device_streams: str = "auto"    # "on" is not ported yet (ROADMAP later
-                                    # slice 6); "auto"/"off" run lockstep
-                                    # on the one device
+    device_streams: str = "auto"    # --device-streams: independent
+                                    # per-device crack streams ("on"),
+                                    # lockstep ("off"), or "auto" = on for
+                                    # one process with several CUDA
+                                    # devices (streams_default)
     max_tries: int = 0              # --max-tries: transport attempts per
                                     # call (0 = retry forever, reference
                                     # behavior)
@@ -157,20 +239,12 @@ class WorkResult:
     stage_times: dict = None
 
 
-def _refuse_unported(cfg: ClientConfig):
-    """Raise for a configured feature that the port does not have yet."""
-    if cfg.device_streams == "on":
-        raise NotImplementedError(
-            "device_streams='on': per-device streams are not ported yet "
-            "(ROADMAP later slice 6)")
-    if cfg.device_streams not in ("auto", "off"):
-        raise ValueError(f"device_streams must be auto/on/off, not {cfg.device_streams!r}")
-
-
 class TpuCrackClient:
     def __init__(self, config: ClientConfig, api: ServerAPI = None, log=None,
                  registry=None):
-        _refuse_unported(config)
+        if config.device_streams not in ("auto", "on", "off"):
+            raise ValueError(
+                f"device_streams must be auto/on/off, not {config.device_streams!r}")
         self.cfg = config
         self.device = resolve_device(config.device)
         self.api = api or ServerAPI(
@@ -204,11 +278,11 @@ class TpuCrackClient:
         self._m_resume = reg.counter(
             "dwpa_client_resume_skipped_total",
             "candidates fast-forwarded by resume replay")
-        # Registered for the scrape surface; nothing counts recompiles in
-        # the port yet (ROADMAP: a torch counterpart of watch_compiles).
+        # Builds inside a unit (analysis.recompile.watch_compiles): a
+        # kernel or native library compiled on the crack path.
         self._m_recompiles = reg.counter(
             "dwpa_client_recompiles_total",
-            "XLA compile-cache misses observed inside work units")
+            "kernel and native-library builds observed inside work units")
         self._m_units = reg.counter(
             "dwpa_client_work_units_total",
             "work units completed, by server verdict")
@@ -228,12 +302,30 @@ class TpuCrackClient:
                   "Real-candidate fraction of the last fused batch")
         reg.gauge("dwpa_unit_queue_depth",
                   "Prefetched work units waiting in the executor queue")
+        # Device-stream families likewise (parallel/streams.py); the
+        # device-labeled series appear once the first stream dispatches.
+        reg.counter("dwpa_stream_blocks_total",
+                    "Feed blocks completed per device stream")
+        reg.gauge("dwpa_stream_busy_fraction",
+                  "Per-stream fraction of wall time spent in "
+                  "prepare/dispatch/collect (1 - shared-queue wait)")
+        reg.gauge("dwpa_stream_queue_depth",
+                  "Shared work-queue depth at this stream's last pull")
+        if config.additional_dict and process_count() > 1:
+            # A per-process local file cannot feed a slice: the pass-1
+            # streams must be byte-identical on every process.  Publish
+            # it as a server dict.
+            raise SystemExit(
+                "additional_dict is process-local; in a multi-process "
+                "slice publish it as a server dictionary instead")
         os.makedirs(config.workdir, exist_ok=True)
         self.dictdir = os.path.join(config.workdir, "dicts")
         os.makedirs(self.dictdir, exist_ok=True)
         # Durable found outbox: every found is journaled before its first
         # put_work attempt and drained at startup/between units, so a
         # crash or server outage between crack and ack cannot lose a PSK.
+        # Every process of a slice opens a journal (cheap); only process
+        # 0 — the slice's server voice — ever records or drains.
         self.outbox = FoundOutbox(
             config.outbox_dir or os.path.join(config.workdir, "outbox"),
             registry=self.registry)
@@ -245,9 +337,15 @@ class TpuCrackClient:
         # replays of pass-1 words — become disk hits instead of PBKDF2.
         self.pmk_store = None
         if config.pmk_cache_dir:
-            self.pmk_store = PMKStore(
-                config.pmk_cache_dir, max_bytes=config.pmk_cache_max_bytes,
-                registry=self.registry)
+            if process_count() > 1:
+                # The engine's store split is single-process (as JAX's):
+                # a slice keeps the plain path.
+                self.log("pmk store: disabled in a multi-process slice")
+            else:
+                self.pmk_store = PMKStore(
+                    config.pmk_cache_dir,
+                    max_bytes=config.pmk_cache_max_bytes,
+                    registry=self.registry)
         # Persistent packed-dictionary cache (optional): pass-2 server
         # dicts — ~100%-recurring inputs keyed by dhash — are served as
         # mmap'd pre-packed blocks on every unit after the first (zero
@@ -267,6 +365,7 @@ class TpuCrackClient:
         # then every cfg.cracked_refresh units (DAW dl_count semantics).
         self._cracked_countdown = 0
         self._resuming = False
+        self._digest_cache = {}
         self.last_result = None
 
     # -- self-update (help_crack.py:158-189) --------------------------------
@@ -312,9 +411,37 @@ class TpuCrackClient:
             self.prewarm()
         return ok
 
+    # -- device-stream plumbing (parallel/streams.py) ----------------------
+
     def _feed_workers(self) -> int:
-        """Configured producer count; one producer for the one device."""
-        return 1 if self.cfg.feed_workers is None else self.cfg.feed_workers
+        """Configured producer count, defaulting to one per local CUDA
+        device so an N-stream host never starves behind one producer."""
+        if self.cfg.feed_workers is not None:
+            return self.cfg.feed_workers
+        return default_feed_workers()
+
+    def _use_streams(self) -> bool:
+        """Whether bulk passes run as independent device streams
+        (``crack_streams``) instead of lockstep dispatch: "on"/"off"
+        force it; "auto" follows ``streams_default()`` — streams in one
+        process with several CUDA devices, lockstep on one card (where
+        they are the same thing) and in a multi-process slice (where the
+        global hits gate is needed)."""
+        mode = self.cfg.device_streams
+        if mode == "on":
+            return True
+        if mode == "off":
+            return False
+        return streams_default()
+
+    def _crack_blocks(self, engine, feed, on_batch=None):
+        """Route one framed block stream through streams or lockstep,
+        preserving the ``on_batch`` resume contract either way."""
+        if self._use_streams():
+            return engine.crack_streams(feed, on_batch=on_batch,
+                                        registry=self.registry,
+                                        tracer=self.tracer)
+        return engine.crack_blocks(feed, on_batch=on_batch)
 
     def prewarm(self):
         """Run the work-sized crack steps once behind the challenge gate,
@@ -355,7 +482,9 @@ class TpuCrackClient:
                              prepack=eng.host_packer(),
                              registry=self.registry, name="prewarm")
         try:
-            eng.crack_blocks(feed)
+            # streams mode warms every stream's engine (the path real
+            # units take); lockstep warms the one engine
+            self._crack_blocks(eng, feed)
         finally:
             feed.close()
         # crack_blocks syncs internally (hits gate), so the span's clock
@@ -374,7 +503,7 @@ class TpuCrackClient:
         # skip-by-count is only sound against the exact stream order this
         # client build generates with this batch size.
         work["_ver"] = RESUME_VERSION
-        work["_nproc"] = 1
+        work["_nproc"] = process_count()
         work["_batch"] = self.cfg.batch_size
         # fsync file AND directory around the replace (utils.fsio): a
         # bare os.replace is atomic against crashes of this process but
@@ -399,13 +528,30 @@ class TpuCrackClient:
                 work = json.load(f)
             if ("hkey" in work and "hashes" in work and "dicts" in work
                     and work.get("_ver") == RESUME_VERSION
-                    and work.get("_nproc") == 1
+                    and work.get("_nproc") == process_count()
                     and work.get("_batch") == self.cfg.batch_size):
                 return work
         except (ValueError, OSError):
             pass
         self._clear_resume()
         return None
+
+    def _file_digest(self, path: str) -> str:
+        """md5 of a workdir file, cached by (size, mtime): the cracked/rkg
+        snapshots only change on the refresh cadence, and the slice's
+        agreement check runs every unit."""
+        import hashlib
+
+        st = os.stat(path)
+        key = (path, st.st_size, st.st_mtime_ns)
+        hit = self._digest_cache.get(key)
+        if hit is None:
+            h = hashlib.md5()
+            with open(path, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 20), b""):
+                    h.update(chunk)
+            hit = self._digest_cache[key] = h.hexdigest()
+        return hit
 
     def _fetch_dicts(self, work: dict) -> list:
         """Download (or reuse cached) pass-2 work dicts; returns local
@@ -473,7 +619,22 @@ class TpuCrackClient:
             except (ConnectionError, ValueError, OSError):
                 pass
         self._cracked_countdown -= 1
-        return [p for p in (cracked, rkg) if os.path.exists(p)]
+        files = [p for p in (cracked, rkg) if os.path.exists(p)]
+        if process_count() > 1:
+            # cracked/rkg are NOT md5-pinned (best-effort artifacts), so a
+            # server-side regen between two processes' downloads could
+            # hand the slice different bytes and the pass-1 streams would
+            # diverge.  Allgather (not a broadcast) so EVERY process sees
+            # every digest and all raise together.
+            mine = ",".join(
+                f"{os.path.basename(p)}:{self._file_digest(p)}" for p in files)
+            alld = _allgather_strs(mine)
+            if len(set(alld)) != 1:
+                raise RuntimeError(
+                    "multi-process pass-1 dict snapshot mismatch (cracked/"
+                    "rkg raced a server regen) — delete the local copies "
+                    f"and restart the unit; digests: {alld}")
+        return files
 
     def _stream_cracked(self, files: list, rules):
         """Stream the prefetched cracked/rkg files through the work
@@ -494,16 +655,24 @@ class TpuCrackClient:
         The server-side query is unordered and grows with new
         submissions, so re-fetching after a crash would misalign the
         resume's skip-by-count fast-forward; the snapshot rides every
-        checkpoint write, making the stream deterministic.
+        checkpoint write, making the stream deterministic.  In a slice
+        only process 0 queries, and broadcasts the snapshot: the pass-1
+        stream must be byte-identical on every process.
         """
         if not work.get("prdict") or "_prdict_cache" in work:
             return
-        try:
-            words = self.api.get_prdict(work["hkey"])
-        except (ConnectionError, ValueError, OSError):
-            # OSError covers gzip.BadGzipFile etc.
-            words = []
-        work["_prdict_cache"] = [w.hex() for w in words]
+        hexes = None
+        if process_index() == 0:
+            try:
+                words = self.api.get_prdict(work["hkey"])
+            except (ConnectionError, ValueError, OSError):
+                # OSError covers gzip.BadGzipFile etc.; a process-0 raise
+                # here would strand the peers parked in the broadcast
+                words = []
+            hexes = [w.hex() for w in words]
+        if process_count() > 1:
+            hexes = _broadcast_json(hexes) or []
+        work["_prdict_cache"] = hexes
         self._write_resume(work)
 
     def _rules(self, work: dict):
@@ -592,8 +761,22 @@ class TpuCrackClient:
 
         CONSUMER-THREAD ONLY, at pass-2 start (a resume that skipped
         pass 1 still fetches here; the feed's producers then stream
-        pure file reads)."""
-        return self._fetch_dicts(work)
+        pure file reads).  In a slice a download failure on ONE process
+        aborts the whole slice loudly: every process reaches the
+        allgather below even on failure, then all raise together."""
+        err = None
+        try:
+            paths = self._fetch_dicts(work)
+        except (ConnectionError, ValueError, OSError) as e:
+            if process_count() <= 1:
+                raise
+            err, paths = f"{type(e).__name__}: {e}", []
+        if process_count() > 1:
+            errs = [e for e in _allgather_strs(err or "") if e]
+            if errs:
+                raise RuntimeError(
+                    f"pass-2 dict fetch failed on the slice: {errs}")
+        return paths
 
     def process_work(self, work: dict) -> WorkResult:
         """One work unit, traced end to end: the ``work_unit`` span
@@ -623,6 +806,15 @@ class TpuCrackClient:
         # candidates — mixing them would make the pass-1 fast-forward
         # skip dict candidates that were never tried.
         mask_skip = int(progress.get("mask_done", 0))
+        if process_count() > 1:
+            # Processes may have checkpointed different done counts
+            # before a crash; the slice needs one skip everywhere, so all
+            # adopt process 0's (at-least-once: a lower value only
+            # re-tries candidates).
+            import numpy as np
+
+            agreed = broadcast_host(np.asarray([skip, mask_skip], np.int64))
+            skip, mask_skip = int(agreed[0]), int(agreed[1])
         self._resuming = skip > 0 or mask_skip > 0
         if self._resuming:
             self._m_resume.inc(skip + mask_skip)
@@ -678,110 +870,157 @@ class TpuCrackClient:
                         producers=self._feed_workers(),
                         registry=self.registry)
         self._snapshot_prdict(work)
-        with self.tracer.span("pass1") as sp1:
-            cracked_files = self._prefetch_cracked(work)
-            if skip:
-                self.log(f"resuming work unit at candidate {skip}")
-            feed1 = CandidateFeed(
-                self._pass1_candidates(work, rules, cracked_files),
-                batch_size=self.cfg.batch_size, skip=skip,
-                prepack=engine.host_packer(), name="pass1", **cfg_feed)
-            try:
-                engine.crack_blocks(feed1, on_batch=on_batch)
-                # actually-skipped count (< skip on a short stream); the
-                # remainder of the resume window carries into pass 2.
-                # The skip ran before any framing, so this never blocks
-                # on device work.
-                skipped = feed1.skipped
-            finally:
-                feed1.close()
-        # crack_blocks syncs internally (hits gate), so sp1's clock
-        # stopped after real device completion; the gauge counts
-        # candidates/s — PMKs computed per candidate per essid group
-        tried1 = done - skip
-        if tried1 and sp1.seconds > 0:
-            self._m_pmks.labels(**{"pass": "1"}).set(tried1 / sp1.seconds)
-        skip2 = skip - skipped
-        with self.tracer.span("pass2") as sp2:
-            paths = self._fetch_pass2_paths(work)
-            if rules:
-                # The feed serves BASE-WORD blocks, framed per dict (warm
-                # ``.rbase`` entries skip the split + pack; cold dicts
-                # stream once and write the entry back), and the engine
-                # uploads each block once and expands it on the device by
-                # every rule; `@`-purge and overflow pairs are
-                # host-interpreted by the engine's seam.  skip2 counts
-                # expanded candidates, the engine's resume domain.
-                src = RulesFeedSource(
-                    [(p, self._dict_key(p)) for p in paths],
-                    batch_size=self.cfg.batch_size, cache=self.dict_cache,
-                    name="pass2", log=self.log)
-                feed2 = CandidateFeed(
-                    None, batch_size=self.cfg.batch_size, frames=src,
-                    prepack=None, name="pass2", **cfg_feed)
+        # The build sentinel wraps every pass: a steady-state unit must
+        # not build a kernel or native library (prewarm built them), and
+        # when one does, the counter makes it visible fleet-wide.
+        with watch_compiles() as comp:
+            with self.tracer.span("pass1") as sp1:
+                cracked_files = self._prefetch_cracked(work)
+                if skip:
+                    self.log(f"resuming work unit at candidate {skip}")
+                # Pass 1 runs replicated in a slice: every process feeds
+                # the identical targeted stream as its own share.
+                feed1 = CandidateFeed(
+                    self._pass1_candidates(work, rules, cracked_files),
+                    batch_size=self.cfg.batch_size, skip=skip, nproc=1,
+                    pid=0, prepack=engine.host_packer(), name="pass1",
+                    **cfg_feed)
                 try:
-                    engine.crack_rules_blocks(
-                        feed2, rules, on_batch=on_batch, skip=skip2,
-                        registry=self.registry, tracer=self.tracer)
+                    self._crack_blocks(engine, feed1, on_batch=on_batch)
+                    # actually-skipped count (< skip on a short stream);
+                    # the remainder of the resume window carries into
+                    # pass 2.  The skip ran before any framing, so this
+                    # never blocks on device work.
+                    skipped = feed1.skipped
                 finally:
-                    feed2.close()
-            else:
-                if self.dict_cache is not None:
-                    # Packed-dict cache path: per-dict framing, warm dicts
-                    # served as pre-packed mmap blocks, cold dicts streamed
-                    # once and written back.  The source owns the resume
-                    # skip — warm skips are index seeks.
-                    src = DictFeedSource(
-                        [(p, self._dict_key(p)) for p in paths],
-                        batch_size=self.cfg.batch_size,
-                        cache=self.dict_cache, skip=skip2, name="pass2",
-                        log=self.log)
-                    feed2 = CandidateFeed(
-                        None, batch_size=self.cfg.batch_size, frames=src,
-                        prepack=engine.host_packer(), name="pass2",
-                        **cfg_feed)
-                else:
+                    feed1.close()
+            # crack_blocks syncs internally (hits gate), so sp1's clock
+            # stopped after real device completion; the gauge counts
+            # candidates/s — PMKs computed per candidate per essid group.
+            # The counts are the slice's (every process reports global
+            # blocks), so each process records its 1/nproc share: the
+            # slice report's sum is then the slice's rate, not nproc
+            # times it.
+            share = 1 / process_count()
+            tried1 = done - skip
+            if tried1 and sp1.seconds > 0:
+                self._m_pmks.labels(**{"pass": "1"}).set(
+                    tried1 * share / sp1.seconds)
+            skip2 = skip - skipped
+            with self.tracer.span("pass2") as sp2:
+                paths = self._fetch_pass2_paths(work)
+                if rules and process_count() > 1:
+                    # A slice's rules pass: crack_rules takes the full
+                    # global dict stream (every process downloads whole
+                    # dicts anyway) and shards internally — each process
+                    # uploads only its 1/nproc row slice and decodes
+                    # finds from the gathered bit masks.  The feed
+                    # supplies the base words (``words()`` flat view):
+                    # dict read + gunzip on the producer threads.
                     words = (w for p in paths for w in DictStream(p))
                     feed2 = CandidateFeed(
-                        words, batch_size=self.cfg.batch_size, skip=skip2,
-                        prepack=engine.host_packer(), name="pass2",
+                        words, nproc=1, pid=0, prepack=None, name="pass2",
+                        batch_size=self.cfg.batch_size * process_count(),
                         **cfg_feed)
-                try:
-                    engine.crack_blocks(feed2, on_batch=on_batch)
-                finally:
-                    feed2.close()
-        # Mask pass: server-issued keyspace shards, generated ON DEVICE
-        # from (mask, custom, skip, limit) alone — zero candidate bytes
-        # arrived on the wire.  mask_blocks frames each shard as MaskPrep
-        # blocks in hashcat -s/-l coordinates (absolute keyspace offsets),
-        # so the mask_done fast-forward resumes mid-shard bit-identically:
-        # a restart replays exactly ``limit - done`` candidates of the
-        # lease's range.
-        mask_entries = work.get("masks") or []
-        if mask_entries:
-            with self.tracer.span("mask") as spm:
-                mrem = mask_skip
-                for shard in mask_entries:
-                    mlimit = int(shard["limit"])
-                    if mrem >= mlimit:
-                        mrem -= mlimit  # shard finished pre-restart
-                        continue
-                    custom = {k: v.encode("latin1") for k, v in
-                              (shard.get("custom") or {}).items()}
-                    blocks = mask_blocks(
-                        shard["mask"], self.cfg.batch_size,
-                        skip=int(shard["skip"]) + mrem,
-                        limit=mlimit - mrem, custom=custom)
-                    mrem = 0
-                    engine.crack_blocks(blocks, on_batch=on_mask_batch)
-            triedm = mask_done - mask_skip
-            if triedm and spm.seconds > 0:
-                self._m_pmks.labels(**{"pass": "mask"}).set(
-                    triedm / spm.seconds)
+                    try:
+                        engine.crack_rules(feed2.words(), rules,
+                                           on_batch=on_batch, skip=skip2,
+                                           registry=self.registry,
+                                           tracer=self.tracer)
+                    finally:
+                        feed2.close()
+                elif rules:
+                    # The feed serves BASE-WORD blocks, framed per dict
+                    # (warm ``.rbase`` entries skip the split + pack; cold
+                    # dicts stream once and write the entry back), and
+                    # the engine uploads each block once and expands it
+                    # on the device by every rule; `@`-purge and overflow
+                    # pairs are host-interpreted by the engine's seam.
+                    # skip2 counts expanded candidates, the engine's
+                    # resume domain.
+                    src = RulesFeedSource(
+                        [(p, self._dict_key(p)) for p in paths],
+                        batch_size=self.cfg.batch_size, cache=self.dict_cache,
+                        name="pass2", log=self.log)
+                    feed2 = CandidateFeed(
+                        None, batch_size=self.cfg.batch_size, frames=src,
+                        prepack=None, name="pass2", **cfg_feed)
+                    try:
+                        crack = (engine.crack_rules_streams
+                                 if self._use_streams()
+                                 else engine.crack_rules_blocks)
+                        crack(feed2, rules, on_batch=on_batch, skip=skip2,
+                              registry=self.registry, tracer=self.tracer)
+                    finally:
+                        feed2.close()
+                else:
+                    # No-rules pass 2 shards across a slice's processes:
+                    # the feed's sharded framing hands each process its
+                    # padded 1/nproc slice of every global block, the
+                    # resume skip applies to the GLOBAL stream, and the
+                    # engine reports each block's global count.  One
+                    # process degenerates to nproc=1 framing.
+                    if self.dict_cache is not None:
+                        # Packed-dict cache path: per-dict framing, warm
+                        # dicts served as pre-packed mmap blocks, cold
+                        # dicts streamed once and written back.  The
+                        # source owns the resume skip — warm skips are
+                        # index seeks.
+                        src = DictFeedSource(
+                            [(p, self._dict_key(p)) for p in paths],
+                            batch_size=self.cfg.batch_size,
+                            cache=self.dict_cache, skip=skip2, name="pass2",
+                            log=self.log)
+                        feed2 = CandidateFeed(
+                            None, batch_size=self.cfg.batch_size, frames=src,
+                            prepack=engine.host_packer(), name="pass2",
+                            **cfg_feed)
+                    else:
+                        words = (w for p in paths for w in DictStream(p))
+                        feed2 = CandidateFeed(
+                            words, batch_size=self.cfg.batch_size, skip=skip2,
+                            prepack=engine.host_packer(), name="pass2",
+                            **cfg_feed)
+                    try:
+                        self._crack_blocks(engine, feed2, on_batch=on_batch)
+                    finally:
+                        feed2.close()
+            # Mask pass: server-issued keyspace shards, generated ON DEVICE
+            # from (mask, custom, skip, limit) alone — zero candidate bytes
+            # arrived on the wire.  mask_blocks frames each shard as MaskPrep
+            # blocks in hashcat -s/-l coordinates (absolute keyspace
+            # offsets), so the mask_done fast-forward resumes mid-shard
+            # bit-identically: a restart replays exactly ``limit - done``
+            # candidates of the lease's range.  In a slice each process
+            # generates its share of every block.
+            mask_entries = work.get("masks") or []
+            if mask_entries:
+                with self.tracer.span("mask") as spm:
+                    mrem = mask_skip
+                    for shard in mask_entries:
+                        mlimit = int(shard["limit"])
+                        if mrem >= mlimit:
+                            mrem -= mlimit  # shard finished pre-restart
+                            continue
+                        custom = {k: v.encode("latin1") for k, v in
+                                  (shard.get("custom") or {}).items()}
+                        blocks = mask_blocks(
+                            shard["mask"], self.cfg.batch_size,
+                            skip=int(shard["skip"]) + mrem,
+                            limit=mlimit - mrem, custom=custom)
+                        mrem = 0
+                        self._crack_blocks(engine, blocks,
+                                           on_batch=on_mask_batch)
+                triedm = mask_done - mask_skip
+                if triedm and spm.seconds > 0:
+                    self._m_pmks.labels(**{"pass": "mask"}).set(
+                        triedm * share / spm.seconds)
         tried = (done - skip) + (mask_done - mask_skip)
         tried2 = done - skip - tried1
         if tried2 and sp2.seconds > 0:
-            self._m_pmks.labels(**{"pass": "2"}).set(tried2 / sp2.seconds)
+            self._m_pmks.labels(**{"pass": "2"}).set(tried2 * share / sp2.seconds)
+        if comp.count:
+            self._m_recompiles.inc(comp.count)
 
         elapsed = time.perf_counter() - t0
         st = engine.stage_times
@@ -809,18 +1048,39 @@ class TpuCrackClient:
             {"k": f.line.mac_ap.hex(), "v": f.psk.hex()} for f in founds
         ]
         cand = [dict(t) for t in {tuple(sorted(c.items())) for c in cand}]
-        try:
-            result.accepted = self._submit(work["hkey"], cand,
-                                           epoch=work.get("epoch"))
-        except ConnectionError as e:
-            # Degraded mode: the founds were journaled before the
-            # attempt — delivery now belongs to the outbox drain, so a
-            # dead server costs this unit an "accepted" flag, not the
-            # PSKs and not a parked crack loop.
-            if cand:
-                self.log(f"put_work failed ({e}); "
-                         f"{len(cand)} found(s) wait in the outbox")
-            result.accepted = False
+        if process_count() > 1:
+            # One submission per slice: process 0 talks to the server,
+            # every process adopts its verdict (all decoded identical
+            # founds).  A process-0 exception broadcasts as an error
+            # sentinel — the peers are already parked in the broadcast
+            # and would wait out the slice timeout if process 0 raised.
+            acc = err = None
+            if process_index() == 0:
+                try:
+                    acc = self._submit(work["hkey"], cand,
+                                       epoch=work.get("epoch"))
+                except ConnectionError:
+                    acc = False  # journaled; the outbox drain retries
+                except Exception as e:
+                    err = f"{type(e).__name__}: {e}"
+            payload = _broadcast_json({"acc": acc, "err": err})
+            if payload["err"]:
+                raise ConnectionError(
+                    f"put_work failed on process 0: {payload['err']}")
+            result.accepted = bool(payload["acc"])
+        else:
+            try:
+                result.accepted = self._submit(work["hkey"], cand,
+                                               epoch=work.get("epoch"))
+            except ConnectionError as e:
+                # Degraded mode: the founds were journaled before the
+                # attempt — delivery now belongs to the outbox drain, so
+                # a dead server costs this unit an "accepted" flag, not
+                # the PSKs and not a parked crack loop.
+                if cand:
+                    self.log(f"put_work failed ({e}); "
+                             f"{len(cand)} found(s) wait in the outbox")
+                result.accepted = False
         self._m_units.labels(
             accepted="true" if result.accepted else "false").inc()
         self._clear_resume()
@@ -862,8 +1122,8 @@ class TpuCrackClient:
     def _drain_outbox(self):
         """Deliver journaled founds left over from crashes/outages —
         called at startup and between units; stops (and stays pending)
-        on the first transport failure."""
-        if not self.outbox.pending_count():
+        on the first transport failure.  Process 0 alone in a slice."""
+        if process_index() != 0 or not self.outbox.pending_count():
             return
         delivered = self.outbox.drain(
             lambda hkey, cand: self.api.put_work(
@@ -877,8 +1137,9 @@ class TpuCrackClient:
     def _prefetch_units(self):
         """Top the degraded-mode buffer up to ``prefetch_units`` extra
         leased units while the transport is healthy, so an OPEN circuit
-        still has queued work to crack."""
-        if self.cfg.prefetch_units <= 0:
+        still has queued work to crack (one process only: a slice cracks
+        one agreed unit at a time)."""
+        if process_count() > 1 or self.cfg.prefetch_units <= 0:
             return
         while (len(self._unit_buffer) < self.cfg.prefetch_units
                and not self.api.circuit_open):
@@ -901,14 +1162,21 @@ class TpuCrackClient:
     def fused_executor(self, units):
         """A ``sched.MultiUnitExecutor`` bound to this client's device,
         config, telemetry and PMK store — the multi-unit fused crack path
-        (``--unit-queue`` / ``--fuse-max-units``)."""
+        (``--unit-queue`` / ``--fuse-max-units``).  One process only, as
+        JAX's: fused waves are assembled from whatever units the queue
+        holds, so a slice's processes would crack different batches."""
+        if process_count() > 1:
+            raise RuntimeError(
+                "unit fusion is single-process only (a multi-process "
+                "slice takes the serial per-unit path)")
         return MultiUnitExecutor(
             units, batch_size=self.cfg.batch_size,
             unit_queue=self.cfg.unit_queue,
             fuse_max_units=self.cfg.fuse_max_units,
             nc=self.cfg.nc, device=self.device, pmk_store=self.pmk_store,
             registry=self.registry, tracer=self.tracer,
-            streams="auto" if self.cfg.device_streams == "auto" else False)
+            streams="auto" if self.cfg.device_streams == "auto"
+            else self._use_streams())
 
     #: In-process crack attempts per work unit before the unit is
     #: abandoned (attempt 1 at the configured batch, each retry attempt
@@ -961,8 +1229,35 @@ class TpuCrackClient:
 
     def run(self) -> int:
         """Update-check + challenge-gate, then loop work units; returns
-        the number of units completed."""
-        if self.check_update():
+        the number of units completed.
+
+        In a multi-process slice (``process_count() > 1``) process 0
+        owns every server decision (update probe, resume read, get_work,
+        put_work) and broadcasts the outcome, so all processes crack the
+        SAME unit with their batches paired; dict downloads stay per
+        process (md5-pinned, so the bytes are identical).  After every
+        unit the slice merges its registries and process 0 reports the
+        slice's PMK/s once (``_slice_report``).
+        """
+        multiproc = process_count() > 1
+        pid = process_index()
+        if multiproc:
+            # A mixed-version slice is fatal by design (stream order is
+            # version-dependent, see _write_resume), so agreement is
+            # checked BEFORE any work, where the failure is a clear exit
+            # rather than a mid-unit collective timeout.
+            vers = _allgather_strs(__version__)
+            if len(set(vers)) != 1:
+                raise SystemExit(
+                    f"mixed client versions across the slice: {vers}; "
+                    "upgrade every process to the same build")
+        # Every process probes/downloads (HTTP only, no collectives), so
+        # an update lands on all of them; process 0's verdict alone
+        # decides the restart.
+        upd = self.check_update()
+        if multiproc:
+            upd = bool(_broadcast_json(upd if pid == 0 else None))
+        if upd:
             raise SystemExit("client update downloaded; restart to apply")
         if not self.challenge():
             raise SystemExit("challenge failed: cracker output untrusted")
@@ -975,48 +1270,90 @@ class TpuCrackClient:
                 self._drain_outbox()
             except (ConnectionError, ValueError):
                 pass
-            work = self._read_resume()
-            if work is None and self._unit_buffer:
-                work = self._unit_buffer.pop(0)
-            if work is None:
-                try:
-                    work = self.api.get_work(self.dictcount)
-                except NoNets:
+            if not multiproc:
+                work = self._read_resume()
+                if work is None and self._unit_buffer:
+                    work = self._unit_buffer.pop(0)
+                if work is None:
+                    try:
+                        work = self.api.get_work(self.dictcount)
+                    except NoNets:
+                        self.log("no nets available; sleeping")
+                        self.api.sleep(self.api.backoff)
+                        continue
+                self._prefetch_units()
+            else:
+                # Process-0 server errors (version gate, malformed work)
+                # reach every process as a sentinel: the peers are
+                # already parked in the broadcast.
+                payload = {"work": None, "err": None}
+                if pid == 0:
+                    try:
+                        payload["work"] = (self._read_resume()
+                                           or self.api.get_work(self.dictcount))
+                    except NoNets:
+                        pass
+                    except Exception as e:
+                        payload["err"] = f"{type(e).__name__}: {e}"
+                payload = _broadcast_json(payload)
+                if payload["err"]:
+                    raise SystemExit(
+                        f"get_work failed on process 0: {payload['err']}")
+                work = payload["work"]
+                if work is None:
                     self.log("no nets available; sleeping")
                     self.api.sleep(self.api.backoff)
                     continue
-            self._prefetch_units()
-            try:
-                res = self._process_with_recovery(work)
-            except PermanentError as e:
-                # A 4xx mid-unit (a dict the server no longer serves,
-                # say) will not heal on replay: abandon the unit — the
-                # server's lease reap reassigns it — instead of resuming
-                # into the same rejection forever.
-                self._clear_resume()
-                self.log(f"permanent transport failure mid-unit: {e}; "
-                         "abandoning unit")
-                continue
-            except ConnectionError as e:
-                # Transport died mid-unit (say, a dict fetch while the
-                # server is down).  The unit is checkpointed in the resume
-                # file — nap until the circuit's next probe slot, then
-                # replay it; any founds already cracked sit safely in the
-                # outbox.
-                nap = self.api.backoff
-                breaker = getattr(self.api, "breaker", None)
-                if breaker is not None and breaker.remaining() > 0:
-                    nap = breaker.remaining()
-                self.log(f"transport failure mid-unit: {e}; "
-                         f"resuming in {nap:.0f}s")
-                self.api.sleep(nap)
-                continue
-            if res is None:
-                continue  # unit requeued (resume file) or abandoned
+            if multiproc:
+                res = self.process_work(work)
+            else:
+                try:
+                    res = self._process_with_recovery(work)
+                except PermanentError as e:
+                    # A 4xx mid-unit (a dict the server no longer serves,
+                    # say) will not heal on replay: abandon the unit —
+                    # the server's lease reap reassigns it — instead of
+                    # resuming into the same rejection forever.
+                    self._clear_resume()
+                    self.log(f"permanent transport failure mid-unit: {e}; "
+                             "abandoning unit")
+                    continue
+                except ConnectionError as e:
+                    # Transport died mid-unit (say, a dict fetch while the
+                    # server is down).  The unit is checkpointed in the
+                    # resume file — nap until the circuit's next probe
+                    # slot, then replay it; any founds already cracked sit
+                    # safely in the outbox.
+                    nap = self.api.backoff
+                    breaker = getattr(self.api, "breaker", None)
+                    if breaker is not None and breaker.remaining() > 0:
+                        nap = breaker.remaining()
+                    self.log(f"transport failure mid-unit: {e}; "
+                             f"resuming in {nap:.0f}s")
+                    self.api.sleep(nap)
+                    continue
+                if res is None:
+                    continue  # unit requeued (resume file) or abandoned
             done += 1
             self.log(
                 f"work {res.hkey[:8]}: {len(res.founds)} founds / "
                 f"{res.candidates_tried} candidates in {res.elapsed:.0f}s "
                 f"(accepted={res.accepted}, dictcount->{self.dictcount})"
             )
+            if multiproc:
+                self._slice_report()
         return done
+
+    def _slice_report(self):
+        """COLLECTIVE (multi-process only): merge every process's
+        registry and report the slice's throughput ONCE — the slice is
+        one volunteer, so its PMK/s must not appear nproc times.  Every
+        process reaches this call (it sits on the per-unit path after
+        put_work, which every process completes)."""
+        merged = merged_slice_snapshot(self.registry)
+        if is_emitter():
+            p1 = merged.value("dwpa_client_pmk_per_s", **{"pass": "1"}) or 0.0
+            p2 = merged.value("dwpa_client_pmk_per_s", **{"pass": "2"}) or 0.0
+            self.log(
+                f"slice PMK/s: pass1={p1:.0f} pass2={p2:.0f} "
+                f"(summed over {process_count()} processes)")

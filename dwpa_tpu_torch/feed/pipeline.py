@@ -48,6 +48,7 @@ import threading
 import time
 
 from ..obs import SpanTracer, default_registry, get_logger
+from ..parallel.mesh import process_count, process_index
 from .framing import frame_blocks, frame_packed, frame_rules_packed, \
     skip_stream
 
@@ -78,8 +79,9 @@ class CandidateFeed:
     for sources that must stay on the consumer thread).
     ``skip``: resume fast-forward — consumed from the source before any
     framing; the actual count is ``feed.skipped`` and block offsets
-    start at ``skip``.  ``nproc``/``pid`` (default 1/0: one process)
-    select sharded framing; ``prepack`` is an optional pure callable
+    start at ``skip``.  ``nproc``/``pid`` (default: the slice's process
+    count and rank, ``parallel.mesh``; 1/0 in one process) select sharded
+    framing; ``prepack`` is an optional pure callable
     ``words -> (rows, lens, nvalid) | None`` (see
     ``M22000Engine.host_packer``) run on the producer thread.
 
@@ -91,9 +93,11 @@ class CandidateFeed:
     """
 
     def __init__(self, source, batch_size: int, *, depth: int = 2,
-                 producers: int = 1, skip: int = 0, nproc: int = 1,
-                 pid: int = 0, pad_word: bytes = b"", prepack=None,
+                 producers: int = 1, skip: int = 0, nproc: int = None,
+                 pid: int = None, pad_word: bytes = b"", prepack=None,
                  registry=None, name: str = "feed", frames=None):
+        nproc = process_count() if nproc is None else nproc
+        pid = process_index() if pid is None else pid
         self.batch_size = int(batch_size)
         self.depth = max(1, int(depth))
         self.name = name
@@ -373,7 +377,10 @@ class DictFeedSource:
     like ``CandidateFeed.skipped``.  A cold dict is written back only
     when this pass streams it from word 0: a dict the resume window cuts
     into is served cold and left uncached, since its tee would see only
-    the tail.  Single-process framing.
+    the tail.  ``nproc``/``pid``/``pad_word`` (default: the slice's
+    process count and rank) select sharded framing, warm or cold: every
+    process derives the same block geometry from the dict word counts
+    whatever its cache state, and takes its own slice of each block.
 
     Iteration is driven from the feed's producer side (under its source
     lock), so cache reads and writes stay on producer threads.
@@ -383,10 +390,14 @@ class DictFeedSource:
     _rules = False
 
     def __init__(self, units, batch_size: int, *, cache=None,
+                 nproc: int = None, pid: int = None, pad_word: bytes = b"",
                  skip: int = 0, name: str = "feed", log=None):
         self.units = list(units)
         self.batch_size = int(batch_size)
         self.cache = cache
+        self.nproc = process_count() if nproc is None else nproc
+        self.pid = process_index() if pid is None else pid
+        self.pad_word = pad_word
         self.name = name
         self.skipped = 0
         self._skip = max(0, int(skip))
@@ -396,8 +407,8 @@ class DictFeedSource:
         """Blocks of a warm entry from word ``start`` on, the first at
         global ``base_offset``."""
         return frame_packed(rd.chunks(start), rd.total_words,
-                            self.batch_size, base_offset=base_offset,
-                            start=start)
+                            self.batch_size, nproc=self.nproc, pid=self.pid,
+                            base_offset=base_offset, start=start)
 
     def __iter__(self):
         from ..gen.dicts import DictStream
@@ -455,6 +466,8 @@ class DictFeedSource:
             served = 0
             try:
                 for blk in frame_blocks(src, self.batch_size,
+                                        nproc=self.nproc, pid=self.pid,
+                                        pad_word=self.pad_word,
                                         base_offset=offset):
                     if cache is not None:
                         cache.m_miss_blocks.inc()
@@ -487,14 +500,17 @@ class RulesFeedSource(DictFeedSource):
     boundaries.
 
     The source takes no skip: the resume window counts expanded pairs
-    and is the engine's own ``skip`` argument.  Single-process framing.
+    and is the engine's own ``skip`` argument.  Single-process framing
+    only — a multi-process slice's rules pass keeps the flat
+    ``crack_rules`` path over ``CandidateFeed.words``.
     """
 
     _rules = True
 
     def __init__(self, units, batch_size: int, *, cache=None,
                  name: str = "pass2", log=None):
-        super().__init__(units, batch_size, cache=cache, name=name, log=log)
+        super().__init__(units, batch_size, cache=cache, nproc=1, pid=0,
+                         name=name, log=log)
 
     def _warm_blocks(self, rd, start: int, base_offset: int):
         return frame_rules_packed(rd.chunks(start), rd.total_words,

@@ -64,6 +64,17 @@ class DeviceStager:
         with torch.cuda.stream(self.stream):
             return host.pin_memory().to(self.device, non_blocking=True)
 
+    def ready_now(self, prep):
+        """Order the current stream after the copies the stager has
+        started so far and return ``prep``, ready to dispatch: the
+        one-block form of the iteration below, for a caller that pulls
+        its own blocks (a device stream).  A ``prep`` that is not the
+        engine's staged triple (a rules stream's dispatched records) is
+        only ordered."""
+        if self.stream is not None:
+            self._ready(prep, self.stream.record_event())
+        return prep
+
     def _ready(self, prep, done):
         """Order the compute stream after a block's copies (the event
         ``done``), and keep the rows' memory from reuse until the
@@ -72,7 +83,7 @@ class DeviceStager:
             return
         compute = torch.cuda.current_stream(self.device)
         compute.wait_event(done)
-        if prep is not None:
+        if isinstance(prep, tuple):
             rows = prep[2]  # a tensor, or a PMK-store MixedPrep
             staged = (rows.device_tensors() if hasattr(rows, "device_tensors")
                       else (rows,))

@@ -30,6 +30,16 @@ Layout of the device work:
   ``sched/fuse.py``): each lane carries its unit's row of a per-unit
   salt table, PBKDF2 takes per-lane salts, every unit's verify runs over
   the one PMK matrix, and each unit decodes only its own lane window.
+- Per-device streams (``crack_streams``, ``crack_rules_streams``,
+  ``parallel/streams.py``) give each device, or each CUDA stream of one
+  card, a twin of this engine that cracks whole blocks from a shared
+  queue; founds and ``on_batch`` stay in global stream order.
+- In a multi-process slice (``parallel/mesh.py``) each process cracks
+  its share of every batch on its own device; one all-reduce of the
+  hits-gate scalars makes every process take the same branch, and on a
+  hit the processes exchange hit columns and candidate bytes (host data
+  only) so every process decodes identical founds in global column
+  order.
 """
 
 import struct
@@ -48,6 +58,8 @@ from ..ops.pbkdf2 import pbkdf2_sha1_pmk
 from ..ops.pbkdf2_cuda import pbkdf2_sha1_pmk_cuda
 from ..oracle import m22000 as oracle
 from ..parallel.device import resolve_device
+from ..parallel.mesh import (allgather_host, allreduce_sum_host,
+                             process_count, process_index)
 from ..pmkstore.stage import MixedPrep, split_block
 from ..utils import bytesops as bo
 from . import hashline as hl
@@ -355,7 +367,13 @@ def _trim_cols(max_len: int) -> int:
     """Word columns to ship for a batch whose longest word is ``max_len``
     bytes, bucketed to {4, 8, 16}; the PBKDF2 rebuilds the zero tail of
     the 16-word HMAC key block.  Typical dict words (<= 16 bytes) ship a
-    quarter of the full row."""
+    quarter of the full row.
+
+    A multi-process slice always ships full rows, as the JAX package's
+    does: every process stages the same row shape whatever its share's
+    longest word."""
+    if process_count() > 1:
+        return 16
     need = -(-max_len // 4)
     for w in (4, 8):
         if need <= w:
@@ -439,14 +457,18 @@ class _ShiftedWords:
 class _MaskWords:
     """pws stand-in for on-device mask generation: column ``b`` is the
     word at keyspace index ``start + b``, computed on demand on the host,
-    so a word is only materialized for the rare hit columns."""
+    so a word is only materialized for the rare hit columns.  ``col0`` is
+    column 0's place in the block: a process of a multi-process slice
+    generates the block's columns from ``col0`` on, and its hit columns
+    are global columns ``col0 + b``."""
 
-    __slots__ = ("mask", "custom", "start")
+    __slots__ = ("mask", "custom", "start", "col0")
 
-    def __init__(self, mask, custom, start):
+    def __init__(self, mask, custom, start, col0=0):
         self.mask = mask
         self.custom = custom
         self.start = start
+        self.col0 = col0
 
     def __getitem__(self, b):
         return next(mask_words(self.mask, self.custom,
@@ -711,7 +733,7 @@ class M22000Engine:
         t0 = time.perf_counter()
         plist = passwords if isinstance(passwords, list) else list(passwords)
         if not plist:
-            return None
+            return self._padding_prep(t0)
         # Native fast path: $HEX decode + length filter + pack fused in
         # one C pass (native/pack_fast.cpp).  Falls back to the Python
         # pipeline when the library is unavailable or the batch isn't
@@ -727,7 +749,7 @@ class M22000Engine:
         pws = [oracle.hc_unhex(p) for p in plist]
         pws = [p for p in pws if MIN_PSK_LEN <= len(p) <= MAX_PSK_LEN]
         if not pws:
-            return None
+            return self._padding_prep(t0)
         nvalid = len(pws)
         lens = np.fromiter((len(p) for p in pws), np.int64, count=nvalid)
         if nvalid < self.batch_size:
@@ -755,10 +777,11 @@ class M22000Engine:
         packed block into per-ESSID cache hits and misses
         (``pmkstore.stage.split_block`` — store lookups are mmap/dict
         reads, still pure host work) and returns a ``MixedPrep`` the
-        engine's mixed dispatch consumes.
+        engine's mixed dispatch consumes.  Single-process only, as in the
+        JAX package: a slice's engines keep the plain path.
         """
         bs = self.batch_size
-        store = self.pmk_store
+        store = self.pmk_store if process_count() == 1 else None
         essids = list(self._salts) if store is not None else None
 
         def pack(words, pre=None):
@@ -783,7 +806,7 @@ class M22000Engine:
         """
         t0 = time.perf_counter()
         if nvalid == 0:
-            return None
+            return self._padding_prep(t0, stager)
         # Size the device batch from the post-filter count: an oversize
         # batch full of invalid words must not inflate the shape.
         target = max(self.batch_size, nvalid)
@@ -804,13 +827,21 @@ class M22000Engine:
             # on-device mask generation (gen.mask.MaskPrep): no host
             # bytes at all — generate exactly the block's keyspace slice
             # on this engine's device (a short last block only its own
-            # rows)
+            # rows; in a slice, this process's ceil(count / nproc)
+            # columns of it)
             t0 = time.perf_counter()
-            pw_words = device_mask_words(prep.mask, prep.start, block.count,
+            lo, mine = 0, block.count
+            if process_count() > 1:
+                per = -(-block.count // process_count())
+                lo = process_index() * per
+                mine = max(0, min(per, block.count - lo))
+                if mine == 0:
+                    return self._padding_prep(t0, stager)
+            pw_words = device_mask_words(prep.mask, prep.start + lo, mine,
                                          prep.custom, device=self.device)
             self.stage_times["prepare"] += time.perf_counter() - t0
-            return (_MaskWords(prep.mask, prep.custom, prep.start),
-                    block.count, pw_words)
+            return (_MaskWords(prep.mask, prep.custom, prep.start + lo, lo),
+                    mine, pw_words)
         if hasattr(prep, "materialize"):
             # a lazy packed prep (framing.PackedSlices) normally
             # materializes on the feed's producer threads; blocks
@@ -840,6 +871,24 @@ class M22000Engine:
                     ent.idx_dev = self._h2d(ent.idx, stager)
         self.stage_times["prepare"] += time.perf_counter() - t0
         return _PackedWords(mp.packed, mp.lens), mp.nvalid, mp
+
+    def _padding_prep(self, t0, stager=None):
+        """All-padding batch for a process whose share holds no valid
+        word.
+
+        In a multi-process slice every process must collect the same
+        batches in the same order (each collect joins the global hits
+        gate); if this process skipped a batch its peers dispatched, the
+        gate's all-reduce would pair different batches.  A batch of zero
+        rows keeps the count equal, and ``nvalid = 0`` masks every column
+        at decode.  Single-process engines keep the cheap skip (None).
+        """
+        if process_count() <= 1:
+            return None
+        rows = np.zeros((self.batch_size, _trim_cols(MIN_PSK_LEN)), np.uint32)
+        pw_words = self._h2d(rows, stager)
+        self.stage_times["prepare"] += time.perf_counter() - t0
+        return [], 0, pw_words
 
     def _dispatch(self, prep):
         """Enqueue the crack step for every live ESSID group (no host sync).
@@ -881,7 +930,7 @@ class M22000Engine:
                        mix_step(pmk_miss, ent.cached_dev, ent.idx_dev))
             outs.append((self._full[essid], step.verify(pmk)))
         self.stage_times["dispatch"] += time.perf_counter() - t0
-        return pws, nvalid, outs, writeback
+        return pws, nvalid, outs, None, writeback
 
     def _decode(self, group, found, pmk_col, pws, live) -> list:
         """Decode one found matrix ([N, V_max, B]) into Found records.
@@ -911,7 +960,7 @@ class M22000Engine:
                 break  # one PSK per net is enough
         return founds
 
-    def _decode_rules(self, group, bits_dev, pws, nvalid, live) -> list:
+    def _decode_rules(self, group, bits_dev, pws, nvalid, b_local, live) -> list:
         """Decode a fused rules chunk's bit-packed found-any mask.
 
         ``bits_dev``: int32[R, ceil(B/32)], bit b of word b>>5 = column b
@@ -920,15 +969,24 @@ class M22000Engine:
         the ORACLE on the candidate that the host rule makes of the base
         word (``_RuleWords``) — finds are rare and the oracle is the
         executable spec, so this is both cheap and authoritative.
+
+        ``b_local`` is the dispatch's per-process column count.  In a
+        multi-process slice each process holds the mask of its own row
+        slice; one allgather of the masks (host data) gives every process
+        the global mask, and since every process holds the global base
+        words (``crack_rules``' contract) each decodes every column
+        itself — identical founds, no candidate exchange.
         """
         founds = []
-        bits = to_numpy(bits_dev)
-        assert bits.shape[1] * 32 >= nvalid, (bits.shape, nvalid)
-        for r in range(bits.shape[0]):
-            if not bits[r].any():
+        bits = allgather_host(to_numpy(bits_dev))  # [nproc, R, ceil(b_local/32)]
+        assert bits.shape[0] * b_local >= nvalid, (bits.shape, b_local, nvalid)
+        for r in range(bits.shape[1]):
+            if not bits[:, r].any():
                 continue  # no hits for this rule
-            hit = np.unpackbits(np.ascontiguousarray(bits[r]).view(np.uint8),
-                                bitorder="little")
+            hit = np.concatenate([
+                np.unpackbits(np.ascontiguousarray(part[r]).view(np.uint8),
+                              bitorder="little")[:b_local]
+                for part in bits])
             for b in np.flatnonzero(hit[:nvalid]):
                 psk = pws[r][int(b)]
                 if psk is None:
@@ -945,23 +1003,87 @@ class M22000Engine:
                     live.discard(id(net.line))
         return founds
 
+    def _gather_find_data(self, found_dev, pmk_dev, pws, nvalid):
+        """Multi-process hit decode (rare path): ``(found, pmk_col, psks)``
+        over the slice's hit columns in global column order.
+
+        Each process masks its own padding (columns ``>= nvalid``), then
+        the slice runs two fixed-shape allgathers of host data: first
+        every process's hit-column count and row width, then one padded
+        row per hit column — its global column, candidate bytes, PMK
+        words and found bits.  Global column ``p * width + b`` is the JAX
+        package's layout (``width`` the largest row count; a mask block's
+        share carries its own ``col0``).  Every process then decodes the
+        same compact matrix ``found[N, V, K]``, ``pmk_col(k)`` and
+        ``psks[k]``, so every engine prunes the same nets.
+        """
+        found = found_dev.cpu().numpy().copy()  # writable, not the step's
+        found[:, :, nvalid:] = False
+        n, v, width = found.shape
+        cols = np.flatnonzero(found.any(axis=(0, 1)))
+        meta = allgather_host(np.asarray([len(cols), width], np.int64))
+        base = getattr(pws, "col0", None)
+        if base is None:
+            base = process_index() * int(meta[:, 1].max())
+        rowlen = 5 + MAX_PSK_LEN + 32 + n * v   # col(4) len(1) psk pmk bits
+        ex = np.zeros((max(1, int(meta[:, 0].max())), rowlen), np.uint8)
+        if len(cols):
+            idx = torch.from_numpy(cols).to(pmk_dev.device)
+            pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
+            for i, b in enumerate(cols):
+                psk = pws[int(b)]
+                ex[i, 0:4] = np.frombuffer(struct.pack("<I", base + int(b)), np.uint8)
+                ex[i, 4] = len(psk)
+                ex[i, 5:5 + len(psk)] = np.frombuffer(psk, np.uint8)
+                o = 5 + MAX_PSK_LEN
+                ex[i, o:o + 32] = pmk_cols[:, i].astype("<u4").view(np.uint8)
+                ex[i, o + 32:] = found[:, :, b].reshape(-1)
+        allex = allgather_host(ex)
+        rows = np.concatenate([part[:int(c)] for part, c in zip(allex, meta[:, 0])])
+        gcols = rows[:, 0:4].copy().view("<u4").reshape(-1)
+        rows = rows[np.argsort(gcols, kind="stable")]
+        o = 5 + MAX_PSK_LEN
+        found_c = rows[:, o + 32:].reshape(-1, n, v).transpose(1, 2, 0).astype(bool)
+        pmk_c = rows[:, o:o + 32].copy().view("<u4")            # [K, 8]
+        psks = [bytes(r[5:5 + int(r[4])]) for r in rows]
+        return found_c, lambda k: pmk_c[k], psks
+
     def _collect(self, dispatched) -> list:
         """Sync stage: gate on hits, decode founds, prune cracked nets,
-        then write a mixed block's new PMKs back to the store."""
+        then write a mixed block's new PMKs back to the store.
+
+        In a multi-process slice the gate is global: the group scalars
+        are fetched as always, then summed over the slice with one
+        all-reduce, so every process takes the same branch and joins the
+        same hit exchange."""
         t0 = time.perf_counter()
         pws, nvalid, outs = dispatched[:3]
+        # Rules records carry the dispatch's per-process column count as
+        # a 4th element; mixed-block records carry the PMK-store
+        # write-back list as a 5th (see _dispatch_mixed).
+        b_shard = dispatched[3] if len(dispatched) > 3 else None
+        writeback = dispatched[4] if len(dispatched) > 4 else None
+        multiproc = process_count() > 1
         founds = []
         live = {id(n.line) for g in self.groups.values() for n in g}
         # The hits gate: one scalar per group, fetched together, is the
         # only device->host sync on an all-miss batch.
         hits = torch.stack([out[0] for _, out in outs]).tolist() if outs else []
+        if multiproc and hits:
+            hits = allreduce_sum_host(np.asarray(hits, np.int64)).tolist()
         for h, (group, out) in zip(hits, outs):
             if h == 0:
                 continue
             if len(out) == 2:  # fused rules chunk: (hits, packed found-any)
-                founds += self._decode_rules(group, out[1], pws, nvalid, live)
+                founds += self._decode_rules(group, out[1], pws, nvalid,
+                                             b_shard, live)
                 continue
             _, found_dev, pmk_dev = out
+            if multiproc:
+                found, pmk_col, psks = self._gather_find_data(
+                    found_dev, pmk_dev, pws, nvalid)
+                founds += self._decode(group, found, pmk_col, psks, live)
+                continue
             found = found_dev.cpu().numpy().copy()  # writable, not the step's
             found[:, :, nvalid:] = False
             cols = np.flatnonzero(found.any(axis=(0, 1)))
@@ -975,7 +1097,7 @@ class M22000Engine:
                                    pws, live)
         for f in founds:
             self.remove(f)
-        if len(dispatched) > 3 and self.pmk_store is not None:
+        if writeback and self.pmk_store is not None:
             # PMK-store write-back: the one place newly derived PMKs leave
             # the device outside a find.  It runs on the consumer thread
             # after the hits-gate fetch, one store call per batch; the
@@ -983,7 +1105,7 @@ class M22000Engine:
             # they turn the NEXT unit's repeats into hits.
             self.pmk_store.put_many(
                 (essid, words, to_numpy(pmk[:, :nmiss]))
-                for essid, pmk, words, nmiss in dispatched[3])
+                for essid, pmk, words, nmiss in writeback)
         self.stage_times["collect"] += time.perf_counter() - t0
         return founds
 
@@ -1062,6 +1184,56 @@ class M22000Engine:
         pipe.drain()
         return pipe.founds
 
+    def _twin_factory(self):
+        """``factory(device)`` building this engine's twin on one device
+        over the SAME hashline objects, so a find on one stream prunes
+        the net on every other (``remove`` matches by line identity)."""
+        lines = [n.line for n in self.nets]
+
+        def _default_factory(device):
+            return type(self)(lines, nc=self.nc, batch_size=self.batch_size,
+                              device=device, pmk_store=self.pmk_store)
+
+        return _default_factory
+
+    def crack_streams(self, blocks, on_batch=None, *, devices=None,
+                      registry=None, tracer=None, engine_factory=None,
+                      max_attempts=2) -> list:
+        """Crack a framed block stream as independent device streams.
+
+        The stream twin of ``crack_blocks`` (``parallel/streams.py``):
+        each stream gets its own single-device engine and crunches WHOLE
+        blocks pulled from a shared queue, under its own CUDA stream —
+        no global barrier, so a straggler only slows its own stream.
+        ``on_batch(consumed, founds)`` keeps the ``crack_blocks``
+        contract exactly: one call per block, in global stream order,
+        with the block's global count.  Found lists match the lockstep
+        path's (ordered demux dedups by net; first block wins).
+
+        ``devices`` defaults to every local CUDA device for a CUDA
+        engine (one stream on a one-card host) and this engine's device
+        otherwise; a device may be named twice to run two streams on it.
+        A block that fails on every stream raises ``StreamError``.
+        Single-process only: a multi-process slice needs the lockstep
+        global hits gate.  ``engine_factory(device)`` overrides the
+        per-stream engine for tests and benches.
+        """
+        from ..parallel.streams import StreamExecutor, stream_devices
+
+        if process_count() > 1:
+            raise RuntimeError(
+                "crack_streams is single-process only — a multi-process "
+                "slice keeps the lockstep path (parallel/streams.py)")
+        if devices is None:
+            devices = stream_devices(self.device)
+        ex = StreamExecutor(engine_factory or self._twin_factory(), devices,
+                            registry=registry, tracer=tracer,
+                            max_attempts=max_attempts)
+        founds = ex.run(blocks, on_batch=on_batch)
+        for f in founds:
+            self.remove(f)  # keep this (parent) engine's live view in sync
+        return founds
+
     def crack_mask(self, mask: str, skip: int = 0, limit: int = None,
                    custom: dict = None, on_batch=None) -> list:
         """Mask attack with on-device candidate generation.
@@ -1113,6 +1285,10 @@ class M22000Engine:
 
         from ..sched.fuse import fuse_units
 
+        if process_count() > 1:
+            raise RuntimeError(
+                "unit fusion is single-process only (a multi-process slice "
+                "takes the serial per-unit path)")
         pipe_founds = []
         inflight = collections.deque()  # dispatched records, oldest first
         pending = []                    # buffered (essid, words, count)
@@ -1269,10 +1445,13 @@ class M22000Engine:
         self.stage_times["collect"] += time.perf_counter() - t0
         return founds
 
-    def _rules_flush(self, ctx, batch, account, push, skip):
+    def _rules_flush(self, ctx, batch, account, gbatch, nproc, pid,
+                     push, skip):
         """One base-word flush through the device-expansion seam.
 
-        The body of ``crack_rules_blocks``, once per block: split the
+        The shared body of every rules dispatch path (the flat
+        ``crack_rules``, block-framed ``crack_rules_blocks``, and the
+        per-device stream adapter ``_RulesStreamEngine``): split the
         batch into device-eligible bases vs host-fallback words, plan the
         fused rule chunks (``simulate_lens`` overflow routing + per-chunk
         resume accounting), pack and upload the base block ONCE, dispatch
@@ -1283,6 +1462,11 @@ class M22000Engine:
         and the pack are skipped.  ``push(record, report)`` /
         ``skip(report)`` receive the dispatched sub-batches in stream
         order; ``account(consumed)`` owns the caller's resume window.
+
+        ``gbatch`` is the global base words per flush (``batch_size x
+        nproc``); in a multi-process slice every process packs the same
+        global batch and uploads only its ``1/nproc`` row slice
+        (``pid``), and the host tail is sliced the same way.
         """
         from ..parallel.step import RULES_CHUNK
         from ..rules.device import simulate_lens, stack_rules
@@ -1344,9 +1528,10 @@ class M22000Engine:
                     plan.append((chunk, expanded, account(expanded)))
             if any(rep for _, _, rep in plan):
                 t0 = time.perf_counter()
-                # Pad to the engine batch size like _prepare, so every
-                # base block has one shape.
-                cap = max(self.batch_size, nplain)
+                # Pad to the global batch size like _prepare, so every
+                # base block has one shape (and splits evenly over the
+                # slice's processes).
+                cap = max(gbatch, -(-nplain // nproc) * nproc)
                 if pre is not None:
                     rows = pre.padded_rows(cap)  # a copy, never the mmap
                 else:
@@ -1359,7 +1544,11 @@ class M22000Engine:
                         assert n == nplain  # min_len=0: no compaction
                 lens_pad = np.zeros(cap, np.int32)
                 lens_pad[:nplain] = lens_np
-                base_dev, lens_dev = self._h2d(rows), self._h2d(lens_pad)
+                # Every process packed the identical global batch; ship
+                # only this process's row slice.
+                lo, hi = pid * (cap // nproc), (pid + 1) * (cap // nproc)
+                base_dev = self._h2d(np.ascontiguousarray(rows[lo:hi]))
+                lens_dev = self._h2d(np.ascontiguousarray(lens_pad[lo:hi]))
                 self.stage_times["prepare"] += time.perf_counter() - t0
         if base_dev is not None:
             # Chunked fused dispatch: each chunk runs expand + PBKDF2 +
@@ -1379,7 +1568,7 @@ class M22000Engine:
                         for essid in list(self.groups)]
                 self.stage_times["dispatch"] += time.perf_counter() - t0
                 ctx.m_device.inc(expanded)
-                push((pws, nplain, outs), report)
+                push((pws, nplain, outs, cap // nproc), report)
         # Host-expanded tail: unsupported rules over plain words, plus the
         # per-(word, rule) fallbacks collected above.  ``consumed`` counts
         # attempted (word, rule) pairs — rejects included, mirroring how
@@ -1391,6 +1580,13 @@ class M22000Engine:
             report = account(consumed)
             if report == 0:
                 return  # batch wholly inside the resume prefix
+            if nproc > 1:
+                # The tail stream is the identical global expansion on
+                # every process; each dispatches its contiguous 1/nproc
+                # block (an empty block still dispatches padding via
+                # _prepare, keeping the slice's collects paired).
+                blk = -(-len(cands) // nproc)
+                cands = cands[pid * blk:(pid + 1) * blk]
             prep = self._prepare(cands)
             if prep is not None and self.groups:
                 push(self._dispatch(prep), report)
@@ -1403,7 +1599,7 @@ class M22000Engine:
             o = rr.apply(w)
             if o is not None:
                 out.append(o)
-                if len(out) >= self.batch_size:
+                if len(out) >= gbatch:
                     submit_host(out, pairs_pending)
                     out, pairs_pending = [], 0
 
@@ -1418,6 +1614,57 @@ class M22000Engine:
                     tail(w, rr)
         if out or pairs_pending:
             submit_host(out, pairs_pending)
+
+    def crack_rules(self, words, rules, on_batch=None, skip: int = 0, *,
+                    registry=None, tracer=None) -> list:
+        """Rules attack with ON-DEVICE mangling over a flat word iterable.
+
+        The flat twin of ``crack_rules_blocks``: the engine frames the
+        words itself at the global batch size (``batch_size x nproc``)
+        and runs each flush through the ``_rules_flush`` seam.
+        ``on_batch(consumed, founds)`` fires per dispatched SUB-batch
+        (a fused chunk covers base words x chunk rules at once); stream
+        order is fixed (base batch major, then device rule chunks in
+        order, then the batch's host-expanded tail), so skip offsets
+        interchange with ``crack_rules_blocks``'.
+
+        Multi-process contract — unlike ``crack``'s local-shard feed:
+        every process passes the SAME global word stream and the same
+        ``skip``.  Each process then packs the global batch but uploads
+        only its 1/nproc row slice, and the find decode gathers the
+        bit-packed masks so every process re-derives identical founds
+        from the global column index, with no candidate exchange.
+        Host-expanded tails slice the identical global tail per process,
+        so the slice's collects stay paired with no extra collective.
+
+        ``skip``: resume fast-forward — sub-batches wholly inside the
+        window are not dispatched; a straddling one is re-dispatched in
+        full but reports only its unskipped remainder.
+        """
+        nproc, pid = process_count(), process_index()
+        gbatch = self.batch_size * nproc
+        ctx = _RulesCtx(rules, registry=registry, tracer=tracer)
+        pipe = _Pipeline(self, on_batch)
+        account = _ResumeWindow(skip)
+
+        def flush(batch):
+            self._rules_flush(ctx, batch, account, gbatch, nproc, pid,
+                              pipe.push, pipe.skip)
+
+        batch = []
+        for w in words:
+            if not self.groups and not pipe.active:
+                break
+            batch.append(w)
+            # Flush at the GLOBAL batch size: each process uploads a
+            # batch_size slice of it.
+            if len(batch) == gbatch:
+                flush(batch)
+                batch = []
+        if batch and (self.groups or pipe.active):
+            flush(batch)
+        pipe.drain()
+        return pipe.founds
 
     def crack_rules_blocks(self, blocks, rules, on_batch=None,
                            skip: int = 0, *, registry=None,
@@ -1454,7 +1701,12 @@ class M22000Engine:
         pair exactly once (device chunks + host tail, rejects included) —
         without packing or device work; the straddling block replays
         at-least-once and reports only its remainder.
+
+        Multi-process: pass GLOBAL blocks (every process the same
+        stream), the ``crack_rules`` contract.
         """
+        nproc, pid = process_count(), process_index()
+        gbatch = self.batch_size * nproc
         ctx = _RulesCtx(rules, registry=registry, tracer=tracer)
         agg = _BlockAgg(on_batch)
         pipe = _Pipeline(self, agg.record)
@@ -1481,7 +1733,138 @@ class M22000Engine:
             prep = getattr(block, "prep", None)
             batch = prep if hasattr(prep, "rules_base") else block.words
             agg.begin()
-            self._rules_flush(ctx, batch, account, push, skipf)
+            self._rules_flush(ctx, batch, account, gbatch, nproc, pid,
+                              push, skipf)
             agg.close()
         pipe.drain()
         return pipe.founds
+
+    def crack_rules_streams(self, blocks, rules, on_batch=None,
+                            skip: int = 0, *, devices=None, registry=None,
+                            tracer=None, engine_factory=None,
+                            max_attempts=2) -> list:
+        """Rules attack as independent per-device streams.
+
+        The stream twin of ``crack_rules_blocks`` (and the rules analog
+        of ``crack_streams``): each stream gets its own single-device
+        engine wrapped in the rules seam adapter (``_RulesStreamEngine``)
+        and pulls WHOLE base blocks from the shared queue, expanding
+        rules on its own device directly ahead of its own PBKDF2
+        dispatch.  ``on_batch(consumed, founds)`` fires once per base
+        block in global stream order with the block's EXPANDED coverage
+        — ``crack_rules_blocks``' framing, so resume offsets interop
+        across the rules entry points.  Blocks wholly inside ``skip``
+        are dropped before they reach the queue (O(1) per block); the
+        straddler carries its in-block expanded skip immutably, so a
+        crash requeue replays it deterministically.
+
+        Single-process only (``crack_streams``' contract).
+        ``engine_factory(device)`` overrides the per-stream INNER engine
+        (the seam adapter still wraps it).
+        """
+        from ..parallel.streams import StreamExecutor, stream_devices
+
+        if process_count() > 1:
+            raise RuntimeError(
+                "crack_rules_streams is single-process only — a "
+                "multi-process slice keeps the lockstep crack_rules path")
+        ctx = _RulesCtx(rules, registry=registry, tracer=tracer)
+        if devices is None:
+            devices = stream_devices(self.device)
+        inner = engine_factory or self._twin_factory()
+
+        def factory(device):
+            return _RulesStreamEngine(inner(device), ctx)
+
+        def wrapped():
+            pos, skip_left = 0, int(skip)
+            for block in blocks:
+                exp = block.count * ctx.n_rules
+                if skip_left >= exp:
+                    skip_left -= exp
+                    pos += exp
+                    continue
+                prep = getattr(block, "prep", None)
+                base = prep if hasattr(prep, "rules_base") else block.words
+                yield _RulesBlock(pos + skip_left, exp - skip_left,
+                                  base, skip_left)
+                pos += exp
+                skip_left = 0
+
+        ex = StreamExecutor(factory, devices, registry=registry,
+                            tracer=tracer, max_attempts=max_attempts)
+        founds = ex.run(wrapped(), on_batch=on_batch)
+        for f in founds:
+            self.remove(f)  # keep this (parent) engine's live view in sync
+        return founds
+
+
+class _RulesBlock:
+    """Work item for the per-device rules streams: a base-word block in
+    EXPANDED (word x rule) coordinates.
+
+    ``offset``/``count`` frame the block's expanded remainder in the
+    global candidate stream (``StreamExecutor`` orders on_batch demux by
+    them and reports ``count`` as the consumed amount — identical to
+    ``crack_rules_blocks`` framing).  ``base`` is the raw base-word list
+    or a warm ``RulesPrep``; ``skip_pairs`` is the immutable in-block
+    expanded resume offset — immutable so a crash requeue replays the
+    straddling block deterministically on the surviving stream.
+    """
+
+    __slots__ = ("offset", "count", "base", "skip_pairs")
+
+    def __init__(self, offset, count, base, skip_pairs=0):
+        self.offset = offset
+        self.count = count
+        self.base = base
+        self.skip_pairs = skip_pairs
+
+
+class _RulesStreamEngine:
+    """Adapter giving a single-device engine the block protocol
+    ``parallel.streams.DeviceStream`` drives, with rules expansion done
+    ON this stream's device via the shared ``_rules_flush`` seam.
+
+    ``_prepare_block`` runs the whole seam for the block (split, pack,
+    per-chunk fused dispatch, host tail) on the stream's thread and CUDA
+    stream, and buffers the dispatched records; ``_dispatch`` is the
+    identity (the device work was queued during prepare — the stream
+    still overlaps blocks because results are only waited on in
+    ``_collect``, ``PIPELINE_DEPTH`` blocks later).  ``_collect`` drains
+    the block's records in order through the inner engine's decode.
+    """
+
+    def __init__(self, inner, ctx):
+        self.inner = inner
+        self.ctx = ctx
+        self.device = inner.device
+        self.PIPELINE_DEPTH = inner.PIPELINE_DEPTH
+
+    @property
+    def groups(self):
+        return self.inner.groups
+
+    @property
+    def nets(self):
+        return self.inner.nets
+
+    def remove(self, found):
+        self.inner.remove(found)
+
+    def _prepare_block(self, block, stager=None):
+        eng = self.inner
+        recs = []
+        eng._rules_flush(self.ctx, block.base, _ResumeWindow(block.skip_pairs),
+                         eng.batch_size, 1, 0,
+                         lambda rec, rep: recs.append(rec), lambda rep: None)
+        return recs
+
+    def _dispatch(self, recs):
+        return recs
+
+    def _collect(self, recs):
+        founds = []
+        for rec in recs:
+            founds.extend(self.inner._collect(rec))
+        return founds

@@ -12,7 +12,8 @@ One observability layer for every process in the system:
 - :mod:`.logs` — ``setup_logging()``: the one logging config
   (``DWPA_LOG=json`` for structured lines) every emitter inherits.
 - :mod:`.multihost` — ``is_emitter()``: only rank 0 of a multi-process
-  run emits.
+  slice emits; ``allgather_json`` / ``merged_slice_snapshot`` merge the
+  slice's registries into one report.
 
 Scrape surface: the server's ``?metrics`` endpoint (server/api.py)
 renders the registry; README "Telemetry" documents metric names and
@@ -21,11 +22,12 @@ label conventions.
 
 from .logs import get_logger, setup_logging
 from .metrics import (DEFAULT_BUCKETS, MetricsRegistry, default_registry)
-from .multihost import is_emitter
+from .multihost import allgather_json, is_emitter, merged_slice_snapshot
 from .spans import Span, SpanTracer, default_tracer
 
 __all__ = [
     "DEFAULT_BUCKETS", "MetricsRegistry", "default_registry",
     "Span", "SpanTracer", "default_tracer",
-    "setup_logging", "get_logger", "is_emitter",
+    "setup_logging", "get_logger", "is_emitter", "allgather_json",
+    "merged_slice_snapshot",
 ]

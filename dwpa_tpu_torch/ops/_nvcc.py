@@ -4,8 +4,11 @@ Every kernel source under ``dwpa_tpu_torch/csrc`` has a plain C interface
 and is compiled for ``sm_90a`` into its own shared library under
 ``build/dwpa_tpu_torch/`` at the repository root, named by the source's
 content hash, so an edited source never loads a stale build.  The
-wrappers load the libraries with ``ctypes``.  Nothing here runs at import
-time, so the CPU tests import the wrappers on a machine without ``nvcc``.
+wrappers load the libraries with ``ctypes``.  Every library actually
+compiled is reported to ``analysis.recompile.note_build`` (the client's
+``dwpa_client_recompiles_total``); one already on disk is not a build.
+Nothing here runs at import time, so the CPU tests import the wrappers
+on a machine without ``nvcc``.
 """
 
 import hashlib
@@ -14,28 +17,32 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..analysis.recompile import note_build
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dwpa_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def library_path(source: Path) -> Path:
-    """Where the library built from ``source`` lives (``lib<stem>_<hash>.so``)."""
+def library_path(source: Path, build_dir=None) -> Path:
+    """Where the library built from ``source`` lives (``lib<stem>_<hash>.so``
+    under ``build_dir``, default ``BUILD_DIR``)."""
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    return Path(build_dir or BUILD_DIR) / f"lib{source.stem}_{digest}.so"
 
 
-def build(*sources: Path) -> list:
+def build(*sources: Path, build_dir=None) -> list:
     """Compile every source whose library is not built yet, one ``nvcc``
     per source, all started together; return the libraries' paths.
 
     ``nvcc``'s ``-Xptxas -v`` report (registers, spills) is kept beside
     each library as ``<name>.ptxas.txt``.  Raises if a build fails.
+    ``build_dir`` (default ``BUILD_DIR``) is where the libraries go.
     """
-    libs = [library_path(s) for s in sources]
+    libs = [library_path(s, build_dir) for s in sources]
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    Path(build_dir or BUILD_DIR).mkdir(parents=True, exist_ok=True)
     jobs = []
     for src, so in zip(sources, libs):
         if so.exists():
@@ -52,6 +59,7 @@ def build(*sources: Path) -> list:
             continue
         so.with_suffix(".ptxas.txt").write_text(out + err)
         os.replace(tmp, so)
+        note_build(so.name)
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs

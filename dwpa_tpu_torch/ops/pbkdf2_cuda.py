@@ -21,11 +21,13 @@ from .pbkdf2 import check_inputs
 
 SOURCE = _nvcc.CSRC / "pbkdf2_sha1.cu"
 
-#: Kernel launches made by :func:`pbkdf2_sha1_pmk_cuda` in this process.
+#: Kernel launches made by :func:`pbkdf2_sha1_pmk_cuda` in this process
+#: (counted under a lock: device streams launch from several threads).
 LAUNCHES = 0
 
 _lib = None
 _lib_lock = threading.Lock()  # first use may come from any thread
+_count_lock = threading.Lock()
 
 
 def _library():
@@ -68,5 +70,6 @@ def pbkdf2_sha1_pmk_cuda(pw, salt1, salt2, iterations=4096):
     if err != 0:
         raise RuntimeError(f"pbkdf2_sha1_pmk kernel launch failed: cudaError {err}")
     if b:
-        LAUNCHES += 1
+        with _count_lock:
+            LAUNCHES += 1
     return out

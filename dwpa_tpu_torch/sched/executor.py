@@ -18,10 +18,13 @@ if it fails again its units are requeued with exponential backoff, and
 a unit that keeps failing lands in ``failed`` instead of wedging the
 stream.  No other error is caught.
 
-One device: every wave runs on the executor's ``device``.  Per-device
-streams are not ported (ROADMAP later slice 6), so ``streams=True`` on a
-host with more than one CUDA device raises instead of running lockstep;
-``"auto"`` and ``False`` run lockstep on the one device.
+Device streams (``parallel/streams.py``): with streams enabled
+(``"auto"`` follows ``streams_default()``: one process, several CUDA
+devices), a wave of several units is cut into per-device bundles
+(``_stream_bundles``) and each bundle cracks on its own device, in its
+own thread and CUDA stream, through its own engine; a lone unit, a
+single device or a multi-process slice keeps the wave whole on the
+executor's ``device``.
 
 Observability: ``dwpa_fused_units_per_batch`` (histogram),
 ``dwpa_fused_fill_fraction`` / ``dwpa_unit_queue_depth`` (gauges),
@@ -29,6 +32,7 @@ Observability: ``dwpa_fused_units_per_batch`` (histogram),
 ``sched:fuse`` / ``sched:demux`` spans when a tracer is wired.
 """
 
+import contextlib
 import queue
 import threading
 import time
@@ -116,10 +120,11 @@ class MultiUnitExecutor:
 
     ``units``: iterable of ``WorkUnit`` (a generator is fine — the
     producer thread pulls lazily, so fetch latency overlaps cracking).
-    ``engine_factory(lines, batch_size)``: override for tests; defaults
-    to building an ``M22000Engine`` on this executor's device and store.
-    ``device``: the torch device every wave cracks on (``None`` is
-    ``cuda:0``).
+    ``engine_factory(lines, batch_size[, device=])``: override for
+    tests; defaults to building an ``M22000Engine`` on this executor's
+    device and store (stream waves need a factory that takes ``device``).
+    ``device``: the torch device lockstep waves crack on (``None`` is
+    ``cuda:0``); ``streams``: ``"auto"``, ``True`` or ``False``.
     """
 
     def __init__(self, units, *, batch_size=4096, unit_queue=4,
@@ -129,10 +134,6 @@ class MultiUnitExecutor:
                  streams="auto"):
         if streams not in ("auto", True, False):
             raise ValueError(f"streams must be 'auto', True or False, not {streams!r}")
-        if streams is True and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "streams=True: per-device streams are not ported yet "
-                "(ROADMAP later slice 6)")
         self.units = iter(units)
         self.batch_size = int(batch_size)
         self.unit_queue = max(1, int(unit_queue))
@@ -145,6 +146,8 @@ class MultiUnitExecutor:
         self.max_retries = int(max_retries)
         self.backoff_s = float(backoff_s)
         self.sleep = sleep
+        #: "auto" resolves per wave via parallel.streams.streams_default()
+        self.streams = streams
         self._engine_factory = engine_factory or self._default_engine
         self.done = []     # units that completed (possibly after retry)
         self.failed = []   # units abandoned after max_retries
@@ -198,11 +201,34 @@ class MultiUnitExecutor:
 
     # -- consumer ----------------------------------------------------------
 
-    def _default_engine(self, lines, batch_size):
+    def _default_engine(self, lines, batch_size, device=None):
         from ..models.m22000 import M22000Engine
 
         return M22000Engine(lines, nc=self.nc, batch_size=batch_size,
-                            device=self.device, pmk_store=self.pmk_store)
+                            device=self.device if device is None else device,
+                            pmk_store=self.pmk_store)
+
+    def _factory_takes_device(self) -> bool:
+        """Whether the engine factory accepts a ``device`` kwarg.  Stream
+        waves REQUIRE it: each bundle must run on its own device, and a
+        factory that ignored ``device`` would hand every stream thread
+        an engine on the executor's one device — such factories (the
+        two-argument test fakes) pin the executor to lockstep waves."""
+        try:
+            import inspect
+
+            params = inspect.signature(self._engine_factory).parameters
+            return "device" in params or any(
+                p.kind is p.VAR_KEYWORD for p in params.values())
+        except (TypeError, ValueError):
+            return False
+
+    def _make_engine(self, lines, batch_size, device=None):
+        """Build a wave engine, passing ``device`` through only when the
+        factory's signature takes it."""
+        if device is not None and self._factory_takes_device():
+            return self._engine_factory(lines, batch_size, device=device)
+        return self._engine_factory(lines, batch_size)
 
     def _next_wave(self, end):
         """Assemble the next wave: deferred holdovers first, then fresh
@@ -242,12 +268,12 @@ class MultiUnitExecutor:
                 break  # keep wave assembly cheap; collider leads next wave
         return wave
 
-    def _run_wave(self, wave, batch_size):
+    def _run_wave(self, wave, batch_size, device=None):
         """Crack one wave through a fresh engine's fused path."""
         if len(wave) == 1 and wave[0].rules is not None:
-            return self._run_wave_rules(wave[0], batch_size)
+            return self._run_wave_rules(wave[0], batch_size, device)
         lines = [ln for u in wave for ln in u.lines]
-        engine = self._engine_factory(lines, batch_size)
+        engine = self._make_engine(lines, batch_size, device)
         by_essid = {}
         for u in wave:
             u._done = {}
@@ -276,11 +302,17 @@ class MultiUnitExecutor:
                            max_units=self.fuse_max_units,
                            tracer=self.tracer, on_fused=on_fused)
 
-    def _run_wave_rules(self, u, batch_size):
+    def _run_wave_rules(self, u, batch_size, device=None):
         """Crack one RULES unit through the device-expansion seam — the
-        same ``crack_rules_blocks`` entry as the serial client path, not
-        a third regime.  ``u.consumed`` advances in EXPANDED candidates."""
-        engine = self._engine_factory(u.lines, batch_size)
+        same ``crack_rules_blocks`` / ``crack_rules_streams`` entry as the
+        serial client path, not a third regime.  Streams engage under the
+        conditions of ``_execute_wave`` (enabled, one process, several
+        devices, a device-taking factory); otherwise the engine runs the
+        blocks on its one device.  ``u.consumed`` advances in EXPANDED
+        candidates."""
+        from ..parallel.mesh import process_count
+
+        engine = self._make_engine(u.lines, batch_size, device)
         u.consumed = u.skip
 
         def on_batch(consumed, founds):
@@ -290,10 +322,123 @@ class MultiUnitExecutor:
                        for g in u.founds):
                     u.founds.append(f)
 
-        blocks = frame_blocks(iter(u._materialized), engine.batch_size)
-        engine.crack_rules_blocks(
-            blocks, u.rules, on_batch=on_batch, skip=u.skip,
-            registry=self.registry, tracer=self.tracer)
+        blocks = frame_blocks(iter(u._materialized),
+                              engine.batch_size * process_count())
+        if (device is None and self._streams_enabled()
+                and self._factory_takes_device()
+                and process_count() == 1
+                and len(self._stream_devices()) > 1
+                and hasattr(engine, "crack_rules_streams")):
+            engine.crack_rules_streams(
+                blocks, u.rules, on_batch=on_batch, skip=u.skip,
+                registry=self.registry, tracer=self.tracer)
+        else:
+            engine.crack_rules_blocks(
+                blocks, u.rules, on_batch=on_batch, skip=u.skip,
+                registry=self.registry, tracer=self.tracer)
+
+    # -- device-stream wave scheduling (parallel/streams.py) ---------------
+
+    def _streams_enabled(self) -> bool:
+        from ..parallel.streams import streams_default
+
+        if self.streams == "auto":
+            return streams_default()
+        return bool(self.streams)
+
+    def _stream_devices(self) -> list:
+        """The devices stream waves spread over: every local CUDA device
+        for a CUDA executor, else the executor's device alone."""
+        from ..parallel.streams import stream_devices
+
+        return stream_devices(self.device)
+
+    def _stream_bundles(self, wave, batch_size, ndev):
+        """Partition one ESSID-disjoint wave into per-device bundles:
+        big units (a whole device batch or more of candidates) get a
+        device to themselves; small units spread over free devices
+        first, then pack greedily (lightest small bundle,
+        ``fuse_max_units`` cap).  Each bundle is itself a valid wave —
+        ESSID disjointness is inherited from the wave it was cut from."""
+        sized = sorted(wave, key=lambda u: -len(u._materialized or ()))
+        bundles = []   # [units], small bundles may grow
+
+        def small_open():
+            return [b for b in bundles
+                    if len(b) < self.fuse_max_units
+                    and len(b[0]._materialized or ()) < batch_size]
+
+        for u in sized:
+            size = len(u._materialized or ())
+            if size >= batch_size or len(bundles) < ndev:
+                bundles.append([u])
+                continue
+            opened = small_open()
+            if opened:
+                min(opened, key=lambda b: sum(
+                    len(x._materialized or ()) for x in b)).append(u)
+            else:
+                bundles.append([u])
+        return bundles
+
+    def _run_wave_streams(self, wave, batch_size):
+        """Scatter one wave onto independent device streams: each bundle
+        runs ``crack_fused`` on its own device's engine, in its own
+        thread and CUDA stream, so a big unit and a clutch of small fused
+        units crack concurrently on different devices.  The per-unit
+        demux is untouched — each unit lives in exactly one bundle, so
+        its ``on_batch`` state is single-threaded.  Any bundle failure
+        re-raises as RuntimeError for ``run``'s retry/requeue
+        containment."""
+        devices = self._stream_devices()
+        bundles = self._stream_bundles(wave, batch_size, len(devices))
+        work = queue.Queue()
+        for b in bundles:
+            work.put(b)
+        errs = []
+
+        def drain(device):
+            cs = torch.cuda.Stream(device) if device.type == "cuda" else None
+            with (torch.cuda.stream(cs) if cs is not None
+                  else contextlib.nullcontext()):
+                while not errs:
+                    try:
+                        b = work.get_nowait()
+                    except queue.Empty:
+                        return
+                    try:
+                        self._run_wave(b, batch_size, device=device)
+                    except BaseException as e:  # contained by run()'s retry
+                        errs.append(e)
+
+        threads = [
+            threading.Thread(target=drain, args=(d,), daemon=True,
+                             name=f"sched-stream-{i}")
+            for i, d in enumerate(devices[:len(bundles)])
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            err = errs[0]
+            if isinstance(err, RuntimeError):
+                raise err
+            raise RuntimeError(f"stream wave failed: {err!r}") from err
+
+    def _execute_wave(self, wave, batch_size):
+        """One wave, streams or lockstep: streams when enabled, more than
+        one unit to spread, more than one device and one process —
+        otherwise the whole wave on the executor's device."""
+        from ..parallel.mesh import process_count
+
+        if (self._streams_enabled() and len(wave) > 1
+                and self._factory_takes_device()
+                and process_count() == 1
+                and len(self._stream_devices()) > 1):
+            self._run_wave_streams(wave, batch_size)
+            return
+        self._run_wave(wave, batch_size)
 
     def run(self) -> list:
         """Drain every unit; returns the completed units in finish order.
@@ -311,7 +456,7 @@ class MultiUnitExecutor:
                     break
                 continue
             try:
-                self._run_wave(wave, self.batch_size)
+                self._execute_wave(wave, self.batch_size)
             except RuntimeError:
                 # One in-process retry at half batch (an out-of-memory on
                 # the fused width usually fits at W/2; a transient device
@@ -319,7 +464,7 @@ class MultiUnitExecutor:
                 if self._m_retries is not None:
                     self._m_retries.inc()
                 try:
-                    self._run_wave(wave, max(1, self.batch_size // 2))
+                    self._execute_wave(wave, max(1, self.batch_size // 2))
                 except RuntimeError:
                     requeued = False
                     for u in wave:

@@ -628,21 +628,42 @@ def test_pass1_candidates_match_jax_client(server, tmp_path):
                          b"cracked-2", b"CRACKED-2", b"cracked-212", b"raked-2", b"c$acked-2"]
 
 
-def test_unported_features_refused(server, tmp_path):
-    for kw, slice_no in ((dict(device_streams="on"), "slice 6"),):
-        with pytest.raises(NotImplementedError, match=slice_no):
-            _client(server, tmp_path, **kw)
+def test_unported_features_refused(server, tmp_path, monkeypatch):
+    """Nothing is refused as unported any more: ``device_streams="on"``
+    (the last refusal) constructs a client that routes its passes through
+    streams; a mode the JAX client lacks is still a ValueError, and with
+    no card and no explicit device the client raises instead of falling
+    back to the CPU."""
+    assert _client(server, tmp_path, device_streams="on")._use_streams()
+    assert not _client(server, tmp_path, device_streams="off")._use_streams()
+    with pytest.raises(ValueError):
+        _client(server, tmp_path, device_streams="always")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _client(server, tmp_path, device_streams="on", device=None)
     # unit fusion is ported: its knobs construct a client
     assert _client(server, tmp_path, unit_queue=2, fuse_max_units=4).cfg.unit_queue == 2
 
 
-def test_client_cli_refuses_deferred_flags():
+def test_client_cli_refuses_deferred_flags(monkeypatch):
+    """No flag is deferred any more (the multi-host flags and
+    ``--device-streams on`` are real); what the CLI still refuses with
+    exit 2 is a command line it cannot run: ``--multihost`` without the
+    env:// variables, a partial manual slice, no ``--url``."""
     from dwpa_tpu_torch.client.__main__ import build_parser, main
+    from dwpa_tpu_torch.parallel.mesh import ENV_VARS
 
     a = build_parser().parse_args(["--url", "http://s/", "--device", "cuda:0"])
     assert (a.url, a.device) == ("http://s/", "cuda:0")
+    a = build_parser().parse_args(["--url", "http://s/", "--device-streams", "on",
+                                   "--coordinator", "127.0.0.1:1", "--num-processes",
+                                   "2", "--process-id", "1"])
+    assert (a.device_streams, a.coordinator, a.num_processes, a.process_id) == (
+        "on", "127.0.0.1:1", 2, 1)
+    for v in ENV_VARS:
+        monkeypatch.delenv(v, raising=False)
     for argv in (["--url", "http://s/", "--multihost"],
-                 ["--url", "http://s/", "--device-streams", "on"],
+                 ["--url", "http://s/", "--coordinator", "127.0.0.1:1"],
                  []):
         with pytest.raises(SystemExit) as e:
             main(argv)

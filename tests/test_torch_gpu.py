@@ -1,8 +1,8 @@
 """The port on a CUDA device: the PBKDF2 kernel, the engine, the SM
 probe kernel, the rule interpreter, the mask generator, the PMK
 store's mixed blocks, mixed-ESSID unit fusion, the packed-dictionary
-cache's warm blocks, the server pre-crack's batcher and the Thomson
-serial sweep.
+cache's warm blocks, the server pre-crack's batcher, the Thomson
+serial sweep, and per-device streams on one card.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -388,3 +388,28 @@ def test_thomson_sweep_on_the_card_matches_cpu(cuda_device):  # noqa: F811
     assert card == list(vendors.thomson_candidates(sfx, years=[8], weeks=[22], device=False))
     assert key in card
     assert list(vendors.thomson_candidates(sfx, years=[8], weeks=[22])) == card
+
+
+@pytest.mark.gpu
+def test_streams_on_the_card_match_lockstep(cuda_device):  # noqa: F811
+    """Two streams on ``cuda:0`` (each its own thread, CUDA stream and
+    stager): the founds and per-block reports of ``crack_blocks``, every
+    PMK through K1, the launch count exact under two threads."""
+    from dwpa_tpu_torch.feed import frame_blocks
+
+    words = [b"card-stream-%06d" % i for i in range(8 * 1024)]
+    words[5000] = SLICE_PSK
+    runs = []
+    for streams in (False, True):
+        eng = tm.M22000Engine(five_net_group(), batch_size=1024, device=cuda_device)
+        before = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+        reports = []
+        crack = (lambda b, **k: eng.crack_streams(b, devices=[cuda_device] * 2, **k)) \
+            if streams else eng.crack_blocks
+        founds = crack(frame_blocks(iter(words), 1024),
+                       on_batch=lambda c, f: reports.append((c, len(f))))
+        assert (pbkdf2_cuda.LAUNCHES - before[0], pbkdf2.CALLS) == (8, before[1])
+        runs.append((sorted((f.line.raw, f.psk, f.nc, f.endian, f.pmk) for f in founds), reports))
+    assert runs[0] == runs[1] and len(runs[0][0]) == 5
+    assert {k[4] for k in runs[1][0]} == {hashlib.pbkdf2_hmac("sha1", SLICE_PSK, SLICE_ESSID,
+                                                             4096, 32)}

@@ -565,12 +565,15 @@ def test_executor_producer_error_reaches_run():
 
 
 def test_executor_streams_refused_on_several_cards(monkeypatch):
-    """``streams=True`` with more than one CUDA device raises (per-device
-    streams are not ported); with one it runs lockstep."""
+    """``streams=True`` with more than one CUDA device is no longer
+    refused (per-device streams are ported): an executor on the CPU has
+    one stream device, so its waves run whole on it; ``"on"`` is still
+    not a mode."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        MultiUnitExecutor([], streams=True, device="cpu")
-    MultiUnitExecutor([], streams="auto", device="cpu")
+    ex = MultiUnitExecutor(_units(2), batch_size=BATCH, streams=True, device="cpu")
+    assert ex._streams_enabled() and ex._stream_devices() == [torch.device("cpu")]
+    assert len(ex.run()) == 2
+    assert MultiUnitExecutor([], streams="auto", device="cpu")._streams_enabled()
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert len(MultiUnitExecutor(_units(2), batch_size=BATCH, streams=True,
                                  device="cpu").run()) == 2
