@@ -2,11 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
 Drives the port's main path — one m22000 work unit cracked end to end —
-through the entry points a user calls, and holds the PBKDF2 kernel to its
-plain torch version and to hashlib.  Phases, each printed as it ends:
+through the entry points a user calls, and holds the PBKDF2 kernel (K1)
+and the verify kernels (K3) to their plain torch versions and to
+hashlib.  Phases, each printed as it ends:
 
 1. device and build: the card's name and power limit (``nvidia-smi``),
-   then the kernel library built from ``dwpa_tpu_torch/csrc``;
+   then the three kernel libraries built from ``dwpa_tpu_torch/csrc``
+   (K1, K2, K3; one ``nvcc`` each, in parallel) and K3's SASS loops;
 2. the kernel against the plain version on the card at 2 and 4096
    iterations (every row width, both salt ranks, a ragged batch), and
    against ``hashlib.pbkdf2_hmac`` at 4096; equality is exact;
@@ -15,7 +17,9 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    PMKID, keyver 2 that needs a nonce correction, keyver 1, keyver 3),
    a seeded 1,048,576-word dictionary in 131072-word batches, the PSK
    planted in the last batch.  Every net must be found with the right
-   PSK, NC delta, endian and PMK, through the kernel only;
+   PSK, NC delta, endian and PMK, through K1 and K3 only (no plain
+   PBKDF2, no plain verify); the breakdown times K3 per verify part
+   beside the plain verify on the same PMKs;
 5. the SM probe (K2): its kernel against the plain version for all four
    mixes at 1 and 2 iterations, at full width and at a ragged width
    (exact), then its measurement path (``sm_probe.run``): the four mixes
@@ -136,7 +140,7 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    ``rules_device`` configuration with two streams, 7b's founds; (c) a
    second ``run()`` of phase 6's unit counting no build in
    ``dwpa_client_recompiles_total``, and ``watch_compiles`` over a fresh
-   build directory counting one build per library (K1, K2, the two
+   build directory counting one build per library (K1, K2, K3, the two
    native libraries); (d) a two-process slice, ``python -m
    dwpa_tpu_torch.client --coordinator 127.0.0.1:<port> --num-processes 2
    --process-id {0,1} --device cuda:0``, against the port's WSGI server on
@@ -144,8 +148,24 @@ plain torch version and to hashlib.  Phases, each printed as it ends:
    ``get_work``, one ``put_work``, every net cracked once, each process's
    pass-2 K1 launch covering its half of the dict, and rank 0 alone
    reporting the slice's PMK/s.
+15. K3 against its plain version on the card at phase 4's width with a
+   ragged tail (B = 131069): ten nets, each with its own PSK planted
+   (hashlib PMKs among random ones) — PMKID, keyver 1 (three nets, one
+   part bucket-padded to four rows), keyver 2, keyver 3 with a padded and
+   with a complete last CMAC block — with hits in non-zero NC variants of
+   both endians and at column B - 1; every part's and every single net's
+   found matrix bit for bit equal to the plain version on the card, the
+   step's equal to the CPU plain version on sampled columns, and a CMAC
+   with no full block (F = 0) both ways.
 
-It then prints the kernel records as one JSON line and, last,
+From phase 6 on, every phase that verifies counts K3's launches (by
+entry) and holds the plain verify at 0 calls; K3's ``launches_by_path``
+are these counts, every run of a phase included.
+
+It then prints K3's bounds per verify part (the instructions its
+function needs, ``ops/opcount.py`` ``verify_census``, at the issue rate,
+against its bytes at the HBM rate; K3's own SASS beside it), the kernel
+records as one JSON line (K1, K2 and K3's three entries) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 nonzero and the ``ok`` line is not printed.  Without a CUDA device it
 exits nonzero before doing anything.
@@ -180,6 +200,18 @@ REPLACES = "dwpa_tpu/ops/pbkdf2_pallas.py:88"
 PROBE_SOURCE = "dwpa_tpu_torch/csrc/sm_probe.cu"
 PROBE_REPLACES = "dwpa_tpu/ops/vpu_probe.py:94"
 PROBE_RAGGED = 1037          # not a multiple of the 128-thread block
+VERIFY_SOURCE = "dwpa_tpu_torch/csrc/verify.cu"
+#: K3's entries and what each replaces: the JAX match function that XLA
+#: compiles into verify_step (there is no Pallas kernel).
+K3_ENTRIES = {
+    "pmkid": "dwpa_tpu/models/m22000.py:272",
+    "eapol": "dwpa_tpu/models/m22000.py:285",
+    "cmac": "dwpa_tpu/models/m22000.py:316",
+}
+K3_PARTS = [("pmkid", ()), ("eapol", (1,)), ("eapol", (2,)), ("cmac", (False,))]
+K3_B = UNIT_BATCH - 3                  # 15: a ragged width at phase 4's scale
+K3_SAMPLE = 512                        # 15: columns held to the CPU plain version
+HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3 (NVIDIA data sheet)
 STUB_URL = "http://stub/"
 STUB_DICT = "dict/phase4.txt.gz"
 STUB_CRACKED = "dict/cracked.txt.gz"
@@ -357,13 +389,43 @@ def unit_lines():
     return five_kind_lines([PSK] * 5, "u")
 
 
+def verify_parts(step, nets):
+    """The verify parts of a crack step, in ``step.parts`` order, as
+    ``(kind, static, real net count, stacked constants without the mask)``."""
+    from dwpa_tpu_torch.parallel.step import _partition
+
+    return [(kind, static, len(idxs), consts[1:])
+            for ((kind, static, _), idxs), (_, consts) in zip(_partition(nets).items(),
+                                                               step.parts)]
+
+
+def kernel_match(kind, static, pmk, consts):
+    """One verify part's match on ``pmk``'s device: K3 on the card."""
+    from dwpa_tpu_torch.parallel.step import _KINDS
+
+    return _KINDS[kind][2](pmk, static, *consts)
+
+
+def k3_function(kind, static):
+    """The SASS name of the K3 kernel that runs a verify part."""
+    if kind == "eapol":
+        return f"verify_eapol_kernelILi{static[0]}E"   # the keyver template
+    return f"verify_{kind}_kernel"
+
+
+def part_label(kind, static, n):
+    return f"{kind}{list(static)} x{n}"
+
+
 def phase_unit(dev, rng, card):
-    """Phase 4: the work unit at full size, then a per-stage breakdown."""
+    """Phase 4: the work unit at full size, then a per-stage breakdown.
+    Returns, beside K1's numbers, K3's launches by entry and its parts
+    at this batch's shapes (``kind, static, N, V, rows, ms, plain_ms``)."""
     import torch
 
     from dwpa_tpu_torch.models.m22000 import M22000Engine
-    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
-    from dwpa_tpu_torch.parallel.step import _partition
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda, verify, verify_cuda
+    from dwpa_tpu_torch.testing import plain_part
 
     lines = unit_lines()
     words = random_words(rng, UNIT_WORDS, 8, 20)
@@ -372,13 +434,19 @@ def phase_unit(dev, rng, card):
     torch.cuda.synchronize()
     pbkdf2_cuda.LAUNCHES = 0
     pbkdf2.CALLS = 0
+    verify_cuda.LAUNCHES.clear()
+    verify.CALLS = 0
     t0 = time.perf_counter()
     unit_founds = founds = eng.crack(words)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
+    k3_launches, verify_calls = dict(verify_cuda.LAUNCHES), verify.CALLS
     check(launches > 0, "the unit never launched the PBKDF2 kernel")
     check(plain_calls == 0, f"the unit ran the plain PBKDF2 {plain_calls} times")
+    check(set(k3_launches) == set(K3_ENTRIES) and min(k3_launches.values()) > 0,
+          f"the unit's K3 launches {k3_launches}")
+    check(verify_calls == 0, f"the unit ran the plain verify {verify_calls} times")
     pmk = hashlib.pbkdf2_hmac("sha1", PSK, ESSID, 4096, 32)
     by_line = {f.line.raw: f for f in founds}
     check(len(founds) == len(lines), f"{len(founds)}/{len(lines)} nets cracked")
@@ -390,7 +458,8 @@ def phase_unit(dev, rng, card):
     unit_pmk_s = UNIT_WORDS / wall
     print(f"phase 4 unit: {len(founds)}/5 nets cracked, {UNIT_WORDS} words in {wall:.3f} s = "
           f"{UNIT_WORDS / wall:.1f} PMK/s; kernel launches {launches}, plain PBKDF2 calls "
-          f"{plain_calls}; stage host seconds {eng.stage_times} [{card}]", flush=True)
+          f"{plain_calls}; K3 launches {k3_launches}, plain verify calls {verify_calls}; "
+          f"stage host seconds {eng.stage_times} [{card}]", flush=True)
 
     # Breakdown on one full batch of the same dictionary (a fresh engine).
     eng = M22000Engine([ln for ln, _ in lines], batch_size=UNIT_BATCH, device=dev)
@@ -400,12 +469,19 @@ def phase_unit(dev, rng, card):
     pw = prep[2]
     k1_ms = cuda_ms(lambda: step.compute_pmk(pw), 5)
     pmk_dev = step.compute_pmk(pw)
-    verify_ms = cuda_ms(lambda: step.verify(pmk_dev), 3)
-    parts = []
-    for (kind, static, _), idxs in _partition(eng._full[essid]).items():
-        fn, consts = step.parts[len(parts)]
-        parts.append(f"{kind}{list(static)} x{len(idxs)} "
-                     f"{cuda_ms(lambda: fn(pmk_dev, *consts), 3):.3f} ms")
+    verify_ms = cuda_ms(lambda: step.verify(pmk_dev), 5)
+    parts, k3_parts = [], []
+    for kind, static, n, consts in verify_parts(step, eng._full[essid]):
+        ms = cuda_ms(lambda: kernel_match(kind, static, pmk_dev, consts), 5)
+        plain_ms = cuda_ms(lambda: plain_part(kind, static, pmk_dev, consts), 3)
+        check(torch.equal(kernel_match(kind, static, pmk_dev, consts),
+                          plain_part(kind, static, pmk_dev, consts)),
+              f"phase 4: K3 != plain on {part_label(kind, static, n)}")
+        v = 1 if kind == "pmkid" else consts[0].shape[1]
+        rows = 0 if kind == "pmkid" else consts[1].shape[1]
+        k3_parts.append((kind, static, consts[0].shape[0], v, rows, ms, plain_ms))
+        parts.append(f"{part_label(kind, static, n)} (bucket {consts[0].shape[0]}, V {v}) K3 "
+                     f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
     dispatched = eng._dispatch(prep)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -418,11 +494,12 @@ def phase_unit(dev, rng, card):
     decode_ms = (time.perf_counter() - t0) * 1e3
     check(len(got) == len(lines), "breakdown hit batch did not decode every net")
     print(f"phase 4 breakdown per {UNIT_BATCH}-row batch (W={pw.shape[1]}): kernel {k1_ms:.3f} ms "
-          f"(median of 5, CUDA events), verify {verify_ms:.3f} ms (median of 3, 5 nets; "
-          f"parts: {', '.join(parts)}), "
+          f"(median of 5, CUDA events), verify {verify_ms:.3f} ms (median of 5, 5 nets; "
+          f"parts, K3 median of 5 and plain median of 3 on the same PMKs: {'; '.join(parts)}), "
           f"gate {gate_ms:.3f} ms (no-hit batch), decode {decode_ms:.3f} ms (hit batch, "
           f"oracle re-check of 5 nets) [{card}]", flush=True)
-    return launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds
+    return (launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds, k3_launches,
+            k3_parts, verify_ms)
 
 
 def phase_probe(dev, rng, card):
@@ -2838,13 +2915,15 @@ def phase_operator_tools(card, device="cuda:0"):
     shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_ops(dev, card):
+def phase_ops(dev, card, k3_paths):
     """Phase 13: the Thomson sweep on the card, a pre-crack that finds
     Thomson nets, the chaos soak, the operator tools.  Returns K1's
-    launches of 13b and 13c."""
+    launches of 13b and 13c (K3's go into ``k3_paths``)."""
     t13 = time.perf_counter()
     phase_thomson_sweep(dev, card)
-    launches = {"13b": phase_thomson_precrack(card), "13c": phase_chaos_soak(card)}
+    launches = {"13b": k3_run(k3_paths, "thomson precrack (phase 13b)", phase_thomson_precrack,
+                              card),
+                "13c": k3_run(k3_paths, "chaos client (phase 13c)", phase_chaos_soak, card)}
     phase_operator_tools(card)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s; K1 launches {launches} [{card}]",
           flush=True)
@@ -2857,12 +2936,13 @@ SLICE_PLANT_AT = 100_000                 # 14d: in process 1's share
 SLICE_TIMEOUT_S = 400
 SLICE_DEVICE = "cuda:0"                  # 14d: both processes share the one card
 #: 14d: runs ``python -m dwpa_tpu_torch.client <args>`` in this process,
-#: counting K1 launches (all, and from pass 2 on) and pass 2's valid rows.
+#: counting K1 launches (all, and from pass 2 on), pass 2's valid rows,
+#: K3's launches by entry and the plain verify's calls.
 SLICE_LAUNCHER = """
 import atexit, json, runpy, sys
 from dwpa_tpu_torch.client import main as cm
 from dwpa_tpu_torch.models import m22000 as tm
-from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
+from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda, verify, verify_cuda
 seen = {"k1_before_pass2": None, "pass2_rows": 0}
 real_fetch, real_dispatch = cm.TpuCrackClient._fetch_pass2_paths, tm.M22000Engine._dispatch
 def fetch(self, work):
@@ -2876,7 +2956,8 @@ cm.TpuCrackClient._fetch_pass2_paths, tm.M22000Engine._dispatch = fetch, dispatc
 atexit.register(lambda: print("SLICE_COUNTS " + json.dumps({
     "launches": pbkdf2_cuda.LAUNCHES, "plain_calls": pbkdf2.CALLS,
     "pass2_launches": pbkdf2_cuda.LAUNCHES - (seen["k1_before_pass2"] or 0),
-    "pass2_rows": seen["pass2_rows"]}), flush=True))
+    "pass2_rows": seen["pass2_rows"], "k3_launches": dict(verify_cuda.LAUNCHES),
+    "verify_plain_calls": verify.CALLS}), flush=True))
 sys.argv = ["dwpa_tpu_torch.client"] + sys.argv[1:]
 runpy.run_module("dwpa_tpu_torch.client", run_name="__main__", alter_sys=True)
 """
@@ -3026,8 +3107,9 @@ def phase_builds(card, words):
     build sentinel over a fresh build directory counts one per library."""
     from dwpa_tpu_torch import native
     from dwpa_tpu_torch.analysis import watch_compiles
-    from dwpa_tpu_torch.ops import _gxx, _nvcc, pbkdf2_cuda, sm_probe
+    from dwpa_tpu_torch.ops import _gxx, _nvcc, pbkdf2_cuda, sm_probe, verify_cuda
 
+    kernels = (pbkdf2_cuda.SOURCE, sm_probe.SOURCE, verify_cuda.SOURCE)
     lines = unit_lines()
     raw = [ln for ln, _ in lines]
     blob = gzip.compress(b"\n".join(words) + b"\n", compresslevel=1)
@@ -3043,15 +3125,15 @@ def phase_builds(card, words):
     fresh = root / "fresh-build"
     t0 = time.perf_counter()
     with watch_compiles() as cold:
-        _nvcc.build(pbkdf2_cuda.SOURCE, sm_probe.SOURCE, build_dir=fresh)
+        _nvcc.build(*kernels, build_dir=fresh)
         for src in ("pack_fast.cpp", "capture_fast.cpp"):
             _gxx.build(native_dir / src, fresh)
     cold_s = time.perf_counter() - t0
     with watch_compiles() as warm:
-        _nvcc.build(pbkdf2_cuda.SOURCE, sm_probe.SOURCE, build_dir=fresh)
+        _nvcc.build(*kernels, build_dir=fresh)
         for src in ("pack_fast.cpp", "capture_fast.cpp"):
             _gxx.build(native_dir / src, fresh)
-    check(cold.count == 4 and warm.count == 0, f"14c builds counted {cold} then {warm}")
+    check(cold.count == 5 and warm.count == 0, f"14c builds counted {cold} then {warm}")
     print(f"phase 14c builds: a second run() of phase 6's unit counted "
           f"dwpa_client_recompiles_total {recompiles:.0f}; a fresh build directory counted "
           f"{cold.count} builds ({', '.join(cold.names)}) in {cold_s:.1f} s, then {warm.count} "
@@ -3059,10 +3141,10 @@ def phase_builds(card, words):
     shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_slice(rng, card):
+def phase_slice(rng, card, k3_paths):
     """14d: a two-process slice of the client CLI on the card against the
     port's WSGI server on 127.0.0.1.  Returns K1's launches over both
-    processes."""
+    processes (K3's go into ``k3_paths``)."""
     import os
     import socket
     import socketserver
@@ -3141,6 +3223,8 @@ def phase_slice(rng, card):
           f"14d nets {[tuple(r) for r in rows]}")
     for pid, c in enumerate(counts):
         check(c["plain_calls"] == 0 and c["launches"] > 0, f"14d process {pid} counts {c}")
+        check(c["verify_plain_calls"] == 0 and sum(c["k3_launches"].values()) > 0,
+              f"14d process {pid} K3 counts {c}")
         check(c["pass2_rows"] == SLICE_DICT_WORDS // 2 and c["pass2_launches"] == 1,
               f"14d process {pid}'s pass 2 did not take half the blocks: {c}")
         pot = (root / f"p{pid}" / "potfile").read_text().splitlines()
@@ -3149,28 +3233,192 @@ def phase_slice(rng, card):
     check(len(slice_lines[0]) == 1 and not slice_lines[1],
           f"14d slice PMK/s lines: {slice_lines}")
     launches = sum(c["launches"] for c in counts)
+    k3_paths["two-process slice (phase 14d)"] = dict(sum(
+        (collections.Counter(c["k3_launches"]) for c in counts), collections.Counter()))
     print(f"phase 14d slice: 2 processes of `python -m dwpa_tpu_torch.client` on {SLICE_DEVICE} "
           f"(gloo over 127.0.0.1), {len(lines)} nets, a {SLICE_DICT_WORDS}-word dict at batch "
           f"{SLICE_BATCH}; one get_work, one put_work; every net cracked once, both processes "
           f"decoded all 5; K1 launches per process {[c['launches'] for c in counts]}, pass 2 "
           f"{[c['pass2_launches'] for c in counts]} launches over {[c['pass2_rows'] for c in counts]}"
-          f" rows; rank 0: {slice_lines[0][0].strip()}; {wall:.1f} s [{card}]", flush=True)
+          f" rows; K3 launches per process {[c['k3_launches'] for c in counts]}; rank 0: {slice_lines[0][0].strip()}; {wall:.1f} s [{card}]", flush=True)
     core.db.close()
     shutil.rmtree(root, ignore_errors=True)
     return launches
 
 
-def phase_slices(dev, rng, card, words, unit_founds, unit_pmk_s, rules_founds, rules_rate):
+def phase_slices(dev, rng, card, words, unit_founds, unit_pmk_s, rules_founds, rules_rate,
+                 k3_paths):
     """Phase 14: per-device streams, the build sentinel and a two-process
-    slice, all through K1.  Returns K1's launches of 14a, 14b and 14d."""
+    slice, all through K1 and K3.  Returns K1's launches of 14a, 14b and
+    14d (K3's go into ``k3_paths``)."""
     t14 = time.perf_counter()
-    launches = {"14a": phase_streams_unit(dev, card, words, unit_founds, unit_pmk_s),
-                "14b": phase_rules_streams(dev, card, rules_founds, rules_rate)}
+    launches = {"14a": k3_run(k3_paths, "streams (phase 14a)", phase_streams_unit, dev, card,
+                              words, unit_founds, unit_pmk_s),
+                "14b": k3_run(k3_paths, "rules streams (phase 14b)", phase_rules_streams, dev,
+                              card, rules_founds, rules_rate)}
     phase_builds(card, words)
-    launches["14d"] = phase_slice(rng, card)
+    launches["14d"] = phase_slice(rng, card, k3_paths)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s; K1 launches {launches} [{card}]",
           flush=True)
     return launches
+
+
+def k3_run(paths, label, fn, *args):
+    """``fn(*args)``, with K3's launches during it (by entry) recorded
+    under ``label`` in ``paths``; the plain verify must not run."""
+    from dwpa_tpu_torch.ops import verify, verify_cuda
+
+    before, calls = collections.Counter(verify_cuda.LAUNCHES), verify.CALLS
+    out = fn(*args)
+    check(verify.CALLS == calls, f"{label}: the plain verify ran {verify.CALLS - calls} times")
+    paths[label] = dict(verify_cuda.LAUNCHES - before)
+    return out
+
+
+#: Phase 15's nets as (keyver, NC delta, endian, EAPOL key data): two
+#: PMKID (keyver 100); three keyver 1 (one verify part bucket-padded to
+#: four rows); two keyver 2; two keyver 3 whose last CMAC block is padded
+#: and one whose EAPOL is a multiple of 16 bytes; hits in non-zero NC
+#: variants of both endians.
+K3_SPECS = [(100, 0, "", None), (100, 0, "", None), (1, 0, "", None), (1, 2, "LE", None),
+            (1, -1, "BE", None), (2, -3, "BE", None), (2, 1, "LE", None), (3, 0, "", None),
+            (3, -2, "BE", None), (3, 3, "LE", b"\x30" * 29)]
+
+
+def phase_k3(dev, rng, card):
+    """Phase 15: K3 against its plain version on the card, at phase 4's
+    width with a ragged tail.  Returns max_abs_err by entry."""
+    import dataclasses
+
+    import torch
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.models import hashline as hl
+    from dwpa_tpu_torch.models import m22000 as m
+    from dwpa_tpu_torch.ops import verify_cuda
+    from dwpa_tpu_torch.ops.common import to_torch
+    from dwpa_tpu_torch.oracle import m22000 as oracle
+    from dwpa_tpu_torch.parallel.step import build_crack_step
+
+    essid = b"dwpa-torch-k3"
+    b = K3_B
+    lines = tfx.verify_lines(K3_SPECS, essid, "k3-phase15")
+    nets = [m.prep_net(hl.parse(line), device=dev) for line, _ in lines]
+    pmk = rng.integers(0, 2**32, (8, b), dtype=np.uint64).astype(np.uint32)
+    # each net at one column spread over the batch and one in the last
+    # block; net 0 at column B - 1
+    planted = tfx.plant_pmks(pmk, essid, [psk for _, psk in lines],
+                             [((i * 12_007 + 4_321) % (b - 256), b - 1 - 7 * i)
+                              for i in range(len(lines))])
+    want = tfx.planted_hits(nets, K3_SPECS, planted)
+    pmk_dev = to_torch(pmk, dev)
+    err = dict.fromkeys(K3_ENTRIES, 0)
+
+    def held(entry, got, ref, what):
+        err[entry] = max(err[entry], int((got.int() - ref.int()).abs().max()) if got.numel() else 0)
+        check(got.shape == ref.shape and torch.equal(got, ref), f"phase 15: K3 != plain, {what}")
+
+    step = build_crack_step(nets, *m.essid_salt_blocks(essid), dev)
+    before = collections.Counter(verify_cuda.LAUNCHES)
+    hits, found, _ = step.verify(pmk_dev)
+    torch.cuda.synchronize()
+    launched = dict(verify_cuda.LAUNCHES - before)
+    parts = verify_parts(step, nets)
+    check(launched == dict(collections.Counter(kind for kind, *_ in parts)),
+          f"phase 15: K3 launches {launched} for parts {[p[:3] for p in parts]}")
+    check(any(n == 3 and consts[0].shape[0] == 4 for _, _, n, consts in parts),
+          "phase 15: no bucket-padded part of 3 nets")
+    for kind, static, n, consts in parts:
+        held(kind, kernel_match(kind, static, pmk_dev, consts),
+             tfx.plain_part(kind, static, pmk_dev, consts), part_label(kind, static, n))
+    for i, net in enumerate(nets):
+        entry, static, consts = tfx.stacked_consts([net])
+        got = m.net_match(pmk_dev, net)
+        held(entry, got, tfx.plain_part(entry, static, pmk_dev, consts)[0],
+             f"net {i} alone (keyver {net.keyver})")
+        held(entry, found[i, :got.shape[0]], got, f"net {i} in the step")
+        check(not found[i, got.shape[0]:].any(), f"phase 15: net {i}'s padded variants hit")
+    hit_set = {tuple(int(x) for x in ix) for ix in found.nonzero()}
+    check(hit_set == want and int(hits) == len(want),
+          f"phase 15: hits {int(hits)} at {sorted(hit_set - want)} / missing {sorted(want - hit_set)}")
+    cols = sorted(set(rng.choice(b, K3_SAMPLE, replace=False).tolist()) | set(planted))
+    cpu_step = build_crack_step([m.prep_net(hl.parse(line), device="cpu") for line, _ in lines],
+                                *m.essid_salt_blocks(essid), torch.device("cpu"))
+    idx = torch.tensor(cols, device=dev)
+    cpu_hits, cpu_found, _ = cpu_step.verify(pmk_dev.index_select(1, idx).cpu())
+    check(torch.equal(cpu_found, found.index_select(2, idx).cpu()),
+          f"phase 15: the card's found matrix != the CPU plain version's on {len(cols)} columns")
+    # F = 0: a CMAC over one block only (the prep never makes one: an
+    # EAPOL frame is longer than 16 bytes), complete and padded, with
+    # the hit planted at net 7's columns under its real KCK.
+    i = 7
+    h = hl.parse(lines[i][0])
+    mac_m, mac_n, _ = oracle.nonce_pairs(h)
+    cols7 = sorted(c for c, j in planted.items() if j == i)
+    for msg in (b"sixteen byte msg", b"seven b"):
+        complete = len(msg) == 16
+        last = msg if complete else msg + b"\x80" + b"\x00" * (15 - len(msg))
+        mic = oracle.compute_mic(hashlib.pbkdf2_hmac("sha1", lines[i][1], essid, 4096, 32), 3,
+                                 mac_m, mac_n, msg)
+        short = dataclasses.replace(
+            nets[i], cmac_full=torch.zeros((0, 16), dtype=torch.int32, device=dev),
+            cmac_last=to_torch(np.frombuffer(last, np.uint8).astype(np.uint32), dev),
+            cmac_last_complete=complete,
+            cmac_target=to_torch(np.frombuffer(mic, np.uint8).astype(np.uint32), dev))
+        _, static, consts = tfx.stacked_consts([short, short])
+        got = kernel_match("cmac", static, pmk_dev, consts)
+        held("cmac", got, tfx.plain_part("cmac", static, pmk_dev, consts),
+             f"F = 0, last_complete {complete}")
+        check({tuple(int(x) for x in ix) for ix in got.nonzero()} ==
+              {(r, 0, c) for r in (0, 1) for c in cols7},
+              f"phase 15: F = 0 (last_complete {complete}) hits {got.nonzero().tolist()}")
+    print(f"phase 15 K3: {len(nets)} nets in {len(parts)} parts "
+          f"({', '.join(part_label(k, st, n) for k, st, n, _ in parts)}) over B={b}: found "
+          f"matrices bit for bit equal to the plain version on the card (every part, bucket "
+          f"rows included, and every net alone) and to the CPU plain version on {len(cols)} "
+          f"columns; {len(want)} planted hits (NC variants of both endians, column B-1) found "
+          f"exactly; F = 0 with last_complete True and False; K3 launches {launched}; "
+          f"max_abs_err {err} [{card}]", flush=True)
+    return err
+
+
+def k3_bounds(parts, sass, b, issue_per_s, card):
+    """K3's bounds at phase 4's shapes, one per verify part (one launch
+    each): the instructions the part's function needs (``ops/opcount.py``
+    ``verify_census``: its plain version's 32-bit ops fused into the
+    card's 3-input instructions, AES-128 at the T-table model) at the
+    issue rate, against 32 PMK bytes in and N x V result bytes out per
+    column at the HBM rate; beside it, what K3's own SASS issues (each
+    instruction once per trip of the loops around it, N x B threads).
+    An entry's ms, plain ms and bounds are the sums over its parts."""
+    from dwpa_tpu_torch.ops.opcount import verify_census
+    from dwpa_tpu_torch.ops.sass import dynamic_count
+
+    k3 = {e: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+              "sass_ms": 0.0, "parts": []} for e in K3_ENTRIES}
+    for kind, static, n, v, rows, ms, p_ms in parts:
+        census = verify_census(kind, static, n, v, rows, b)
+        inst = dynamic_count(sass, k3_function(kind, static), [] if kind == "pmkid" else [v, rows])
+        ops_ms = census["ops"] / issue_per_s * 1e3
+        sass_ms = inst * n * b / issue_per_s * 1e3
+        bytes_ms = b * (32 + n * v) / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        rec = k3[kind]
+        for key, x in (("ms", ms), ("plain_ms", p_ms), ("bound_ms", bound), ("ops_ms", ops_ms),
+                       ("bytes_ms", bytes_ms), ("sass_ms", sass_ms)):
+            rec[key] += x
+        rec["parts"].append({"part": f"{kind}{list(static)}", "nets": n, "variants": v,
+                             "blocks": rows, "census_per_column": census["per_column"],
+                             "census_by_class": census["by_class"], "thread_inst": inst,
+                             "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
+                             "sass_bound_ms": sass_ms})
+        print(f"K3 bound {kind}{list(static)}: {n} nets x {b} columns (V {v}, "
+              f"{'E' if kind == 'eapol' else 'F'} {rows}), the function {census['per_column']} "
+              f"instructions a column + {census['per_part']} a part {census['by_class']} at the "
+              f"issue rate {ops_ms:.3f} ms; bytes {bytes_ms:.4f} ms; K3 {ms:.3f} ms ({bound / ms:.1%}"
+              f" of its bound); K3's own SASS {inst} instructions a thread = {sass_ms:.3f} ms "
+              f"({sass_ms / ms:.1%} of K3's time); plain {p_ms:.3f} ms [{card}]", flush=True)
+    return k3
 
 
 def main():
@@ -3180,8 +3428,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from dwpa_tpu_torch.client.challenge import challenge
-    from dwpa_tpu_torch.ops import _nvcc, pbkdf2, pbkdf2_cuda, sm_probe
-    from dwpa_tpu_torch.ops.sass import loop_opcodes, loop_span, sass_text
+    from dwpa_tpu_torch.ops import _nvcc, pbkdf2, pbkdf2_cuda, sm_probe, verify_cuda
+    from dwpa_tpu_torch.ops.sass import dynamic_count, loop_opcodes, loop_span, sass_text
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -3189,9 +3437,9 @@ def main():
     print(f"phase 1 device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     t0 = time.perf_counter()
-    so, probe_so = _nvcc.build(pbkdf2_cuda.SOURCE, sm_probe.SOURCE)
+    so, probe_so, k3_so = _nvcc.build(pbkdf2_cuda.SOURCE, sm_probe.SOURCE, verify_cuda.SOURCE)
     build_s = time.perf_counter() - t0
-    for lib in (so, probe_so):
+    for lib in (so, probe_so, k3_so):
         ptxas = lib.with_suffix(".ptxas.txt").read_text()
         regs = re.findall(r"Used \d+ registers.*", ptxas)
         print(f"phase 1 build: {lib.name}; ptxas: {'; '.join(regs) or ptxas.strip()}", flush=True)
@@ -3199,11 +3447,16 @@ def main():
     loop_inst, other_inst = loop_span(k1_sass, "pbkdf2_sha1_pmk_kernel")
     k1_mix = loop_opcodes(k1_sass, "pbkdf2_sha1_pmk_kernel")
     steps = {mix: sm_probe.loop_sass(mix) for mix in sm_probe.MIXES}
-    print(f"phase 1 build: both libraries in {build_s:.1f} s (one nvcc each, in parallel); "
+    print(f"phase 1 build: three libraries in {build_s:.1f} s (one nvcc each, in parallel); "
           f"K1 SASS: {loop_inst} instructions per loop iteration (T1+T2), {other_inst} outside "
           f"the loop; probe SASS per {sm_probe.UNROLL}-step loop iteration: "
           f"{', '.join(f'{m} {n[0]} (+{n[1]} outside)' for m, n in steps.items())}", flush=True)
     print(f"phase 1 build: K1 loop opcodes {dict(k1_mix.most_common())}", flush=True)
+    k3_sass = sass_text(k3_so)
+    print("phase 1 build: K3 SASS instructions a thread at one trip of each loop "
+          + ", ".join(f"{k3_function(*part)} "
+                      f"{dynamic_count(k3_sass, k3_function(*part), [1] * (2 * bool(part[1])))}"
+                      for part in K3_PARTS), flush=True)
 
     rng = np.random.default_rng(SEED)
     err = phase_kernel(dev, rng, card)
@@ -3214,7 +3467,9 @@ def main():
     check(pbkdf2_cuda.LAUNCHES > 0 and pbkdf2.CALLS == 0, "challenge bypassed the kernel")
     print("phase 3 challenge: passed (aaaa1234 on the PMKID and EAPOL lines)", flush=True)
 
-    launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds = phase_unit(dev, rng, card)
+    (launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds, k3_launches, k3_parts,
+     verify_ms) = phase_unit(dev, rng, card)
+    k3_paths = {"unit (phase 4)": k3_launches}
 
     # The plain version at the main path's shape, on the same batch.
     pmk_kernel = step.compute_pmk(pw)
@@ -3227,38 +3482,49 @@ def main():
     check(torch.equal(pmk_kernel, pmk_plain), "kernel != plain on the main-path batch")
 
     res, probe_launches, probe_err, probe_plain_ms = phase_probe(dev, rng, card)
-    client_launches, phase6_p2 = phase_client(card, words, unit_pmk_s)
+    client_launches, phase6_p2 = k3_run(k3_paths, "client (phase 6)", phase_client, card,
+                                        words, unit_pmk_s)
     expand_ms = phase_expand(dev, rng, card)
-    rules_launches, rules_err, rules_founds, rules_rate = phase_rules_engine(
-        dev, rng, card, expand_ms)
+    rules_launches, rules_err, rules_founds, rules_rate = k3_run(
+        k3_paths, "rules engine (phase 7b)", phase_rules_engine, dev, rng, card, expand_ms)
     err = max(err, rules_err)
-    rules_client_launches = phase_rules_client(card, rng, unit_pmk_s)
+    rules_client_launches = k3_run(k3_paths, "rules client (phase 7c)", phase_rules_client,
+                                   card, rng, unit_pmk_s)
     phase_mask_words(dev, card)
-    mask_launches, mask_err = phase_mask_engine(dev, card)
+    mask_launches, mask_err = k3_run(k3_paths, "mask (phase 8b)", phase_mask_engine, dev, card)
     err = max(err, mask_err)
-    mask_client_launches = phase_mask_client(card)
-    store_launches = phase_store_engine(dev, card)
-    store_client_launches = phase_store_client(card, words, unit_pmk_s)
+    mask_client_launches = k3_run(k3_paths, "mask client (phase 8c)", phase_mask_client, card)
+    store_launches = k3_run(k3_paths, "pmkstore (phase 9a)", phase_store_engine, dev, card)
+    store_client_launches = k3_run(k3_paths, "pmkstore client (phase 9b)", phase_store_client,
+                                   card, words, unit_pmk_s)
     phase_store_poison(dev, rng, card)
     t10 = time.perf_counter()
     fused_err, fused_ms = phase_fused_step(dev, rng, card)
     err = max(err, fused_err)
-    fused_launches = {"10b": phase_small_units(dev, card)}
-    fused_launches.update(phase_fused_stream(card, rng))
+
+    def fused_paths():
+        out = {"10b": phase_small_units(dev, card)}
+        out.update(phase_fused_stream(card, rng))
+        return out
+
+    fused_launches = k3_run(k3_paths, "fused (phase 10)", fused_paths)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s; K1 through the fused step "
           f"{fused_ms:.3f} ms per {UNIT_BATCH}-lane batch against {k1_ms:.3f} ms with one "
           f"salt (phase 4); fused-path K1 launches {fused_launches} [{card}]", flush=True)
     t11 = time.perf_counter()
     phase_dict_cache_feed(card)
-    dcache_launches = {"11b": phase_dict_cache_engine(dev, card),
-                       "11c": phase_dict_cache_client(card, words, unit_pmk_s, phase6_p2),
-                       "11d": phase_rbase_client(card, rng, unit_pmk_s)}
+    dcache_launches = k3_run(k3_paths, "dict cache (phase 11)", lambda: {
+        "11b": phase_dict_cache_engine(dev, card),
+        "11c": phase_dict_cache_client(card, words, unit_pmk_s, phase6_p2),
+        "11d": phase_rbase_client(card, rng, unit_pmk_s)})
     print(f"phase 11: {time.perf_counter() - t11:.1f} s; dict-cache-path K1 launches "
           f"{dcache_launches} [{card}]", flush=True)
-    server_launches, precrack_ms = phase_server(dev, rng, card)
-    ops_launches = phase_ops(dev, card)
+    server_launches, precrack_ms = k3_run(k3_paths, "server precrack (phase 12)", phase_server,
+                                          dev, rng, card)
+    ops_launches = phase_ops(dev, card, k3_paths)
     slice_launches = phase_slices(dev, rng, card, words, unit_founds, unit_pmk_s,
-                                  rules_founds, rules_rate)
+                                  rules_founds, rules_rate, k3_paths)
+    k3_err = phase_k3(dev, rng, card)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -3292,7 +3558,12 @@ def main():
           f"at the issue rate {b2048:.3f} ms, K1 at {b2048 / precrack_ms:.1%}: {PRECRACK_BATCH} "
           f"threads fill {PRECRACK_BATCH // 128} of the card's {sms} SMs) against {k1_ms:.3f} ms "
           f"per {b}-row batch (phase 4) [{card}]", flush=True)
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    k3 = k3_bounds(k3_parts, k3_sass, b, issue_per_s, card)
+    print(f"K3 per {b}-row batch (phase 4): {sum(r['ms'] for r in k3.values()):.3f} ms over its "
+          f"parts, bound {sum(r['bound_ms'] for r in k3.values()):.3f} ms, the plain verify "
+          f"{sum(r['plain_ms'] for r in k3.values()):.3f} ms; step.verify {verify_ms:.3f} ms "
+          f"against K1 {k1_ms:.3f} ms; K3 launches by path {k3_paths} [{card}]", flush=True)
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "pbkdf2_sha1_pmk", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3322,7 +3593,15 @@ def main():
         "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,
         "ms": sha1["seconds_1x"] * 1e3, "plain_ms": probe_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "operations", "library_ms": None,
-    }]}))
+    }] + [{
+        "name": f"verify_{e}", "route": "cuda", "source": VERIFY_SOURCE,
+        "replaces": K3_ENTRIES[e], "launches": k3_launches[e], "max_abs_err": k3_err[e],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": "operations" if rec["ops_ms"] >= rec["bytes_ms"] else "bytes",
+        "library_ms": None, "issue_bound_ms": rec["ops_ms"], "bytes_bound_ms": rec["bytes_ms"],
+        "sass_bound_ms": rec["sass_ms"], "parts": rec["parts"],
+        "launches_by_path": {path: c.get(e, 0) for path, c in k3_paths.items()},
+    } for e, rec in k3.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

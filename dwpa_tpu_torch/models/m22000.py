@@ -11,9 +11,12 @@ Layout of the device work:
   (``ops/pbkdf2_cuda.py``) and its plain torch version for a CPU batch.
   The ESSID salt blocks are data, so one kernel serves every ESSID.
 - Verification takes the per-net constants (PRF message variants, padded
-  EAPOL blocks, target words) as int32 tensors with any leading batch of
+  EAPOL blocks, target words) as int32 tensors with a leading axis of
   nets, and computes every net and every nonce-correction variant as one
-  ``[N, V, B]`` batch of eager torch ops (``parallel/step.py``).
+  ``[N, V, B]`` batch (``parallel/step.py``): the hand-written CUDA
+  kernels K3 (``ops/verify_cuda.py``, one launch per verify part) for a
+  CUDA PMK matrix, their plain torch versions (``ops/verify.py``) for a
+  CPU one.
 - All byte wrangling happens on the host in numpy; the device sees only
   fixed-shape int32 word tensors.  A rules attack
   (``crack_rules_blocks``) uploads each base block once and mangles it on
@@ -51,11 +54,11 @@ import torch
 
 from ..gen.mask import device_mask_words, mask_blocks, mask_words
 from ..native import pack_candidates_fast
-from ..ops import hmac as hm
-from ..ops.aes import aes128_cmac
-from ..ops.common import bswap32, shr32, to_numpy, to_torch
+from ..ops import verify as vf
+from ..ops.common import to_numpy, to_torch
 from ..ops.pbkdf2 import pbkdf2_sha1_pmk
 from ..ops.pbkdf2_cuda import pbkdf2_sha1_pmk_cuda
+from ..ops.verify_cuda import cmac_match_cuda, eapol_match_cuda, pmkid_match_cuda
 from ..oracle import m22000 as oracle
 from ..parallel.device import resolve_device
 from ..parallel.mesh import (allgather_host, allreduce_sum_host,
@@ -239,6 +242,17 @@ def prep_net(h: hl.Hashline, nc: int = DEFAULT_NC, device=None) -> PreppedNet:
 # ---------------------------------------------------------------------------
 
 
+def _on_device(what, cuda_fn, plain_fn, x, *args, **kwargs):
+    """``cuda_fn`` (a hand-written kernel) for a CUDA tensor ``x``,
+    ``plain_fn`` (its plain torch version) for a CPU one; any other
+    device raises.  No fallback: a kernel's failure is the caller's."""
+    if x.is_cuda:
+        return cuda_fn(x, *args, **kwargs)
+    if x.device.type == "cpu":
+        return plain_fn(x, *args, **kwargs)
+    raise ValueError(f"no {what} for device {x.device}")
+
+
 def _pmk_impl(pw_words, salt1, salt2, iterations=4096):
     """PBKDF2 batch -> int32[8, B]: the CUDA kernel for a CUDA batch, the
     plain torch version for a CPU batch, nothing else.
@@ -251,11 +265,8 @@ def _pmk_impl(pw_words, salt1, salt2, iterations=4096):
     ``iterations`` is 4096 for a PMK; tests hold the kernel to its plain
     version at fewer.
     """
-    if pw_words.is_cuda:
-        return pbkdf2_sha1_pmk_cuda(pw_words, salt1, salt2, iterations)
-    if pw_words.device.type == "cpu":
-        return pbkdf2_sha1_pmk(pw_words, salt1, salt2, iterations)
-    raise ValueError(f"no PBKDF2 for device {pw_words.device}")
+    return _on_device("PBKDF2", pbkdf2_sha1_pmk_cuda, pbkdf2_sha1_pmk, pw_words, salt1, salt2,
+                      iterations)
 
 
 def pmk_kernel(pw_words, salt1, salt2, iterations=4096):
@@ -266,73 +277,36 @@ def pmk_kernel(pw_words, salt1, salt2, iterations=4096):
     return _pmk_impl(pw_words, salt1, salt2, iterations)
 
 
-def _pmk_key_block(pmk):
-    return [pmk[i] for i in range(8)] + [0] * 8
-
-
-def _col(t, extra):
-    """A constant word with leading net dims ``[*L]`` -> ``[*L, 1 x extra]``,
-    so it broadcasts against ``[*L, ..., B]`` batch words."""
-    return t.reshape(tuple(t.shape) + (1,) * extra)
-
-
-def _eq4(out, target, extra):
-    m = out[0] == _col(target[..., 0], extra)
-    for i in range(1, 4):
-        m = m & (out[i] == _col(target[..., i], extra))
-    return m
-
-
-def _block_words(blocks, extra):
-    """[*L, nb, 16] constant blocks -> nb lists of 16 broadcastable words."""
-    return [[_col(blocks[..., k, j], extra) for j in range(16)]
-            for k in range(blocks.shape[-2])]
-
-
 def _pmkid_impl(pmk, msg_block, target):
-    """PMKID match.  ``pmk``: int32[8, B]; ``msg_block``: [*L, 16];
-    ``target``: [*L, 4] for any leading net dims ``L``.  -> bool[*L, B]."""
-    ist, ost = hm.hmac_sha1_precompute(_pmk_key_block(pmk))
-    out = hm.hmac_sha1_blocks(ist, ost, _block_words(msg_block[..., None, :], 1))
-    return _eq4(out, target, 1)
+    """PMKID match.  ``pmk``: int32[8, B]; ``msg_block``: [N, 16];
+    ``target``: [N, 4] (or one net's [16] and [4]).  -> bool[N, B].
+
+    K3 (``ops/verify_cuda``) for a CUDA ``pmk``, the plain version
+    (``ops/verify``, any leading net dims) for a CPU one, nothing else."""
+    return _on_device("verify", pmkid_match_cuda, vf.pmkid_plain, pmk, msg_block, target)
 
 
 def eapol_match(pmk, prf_blocks, eapol_blocks, target, *, keyver):
-    """MIC match for keyver 1/2 over all NC variants.
+    """MIC match for keyver 1/2 over all NC variants, routed like
+    :func:`_pmkid_impl`.
 
-    ``pmk``: int32[8, B]; ``prf_blocks``: [*L, V, 2, 16];
-    ``eapol_blocks``: [*L, E, 16]; ``target``: [*L, 4].
-    Returns bool[*L, V, B].
+    ``pmk``: int32[8, B]; ``prf_blocks``: [N, V, 2, 16];
+    ``eapol_blocks``: [N, E, 16]; ``target``: [N, 4].
+    Returns bool[N, V, B].
     """
-    ist, ost = hm.hmac_sha1_precompute(_pmk_key_block(pmk))
-    prf = hm.hmac_sha1_blocks(ist, ost, _block_words(prf_blocks, 1))
-    eap = _block_words(eapol_blocks, 2)
-    kck = list(prf[:4])
-    if keyver == 1:
-        ii, oo = hm.hmac_md5_precompute([bswap32(w) for w in kck] + [0] * 12)
-        out = hm.hmac_md5_blocks(ii, oo, eap)
-    else:
-        ii, oo = hm.hmac_sha1_precompute(kck + [0] * 12)
-        out = hm.hmac_sha1_blocks(ii, oo, eap)
-    return _eq4(out, target, 2)
+    return _on_device("verify", eapol_match_cuda, vf.eapol_match_plain, pmk, prf_blocks,
+                      eapol_blocks, target, keyver=keyver)
 
 
 def eapol_cmac_match(pmk, prf_blocks, cmac_full, cmac_last, target, *, last_complete):
-    """AES-128-CMAC MIC match (keyver 3, WPA2 802.11w).
+    """AES-128-CMAC MIC match (keyver 3, WPA2 802.11w), routed like
+    :func:`_pmkid_impl`.
 
-    ``prf_blocks``: [*L, V, 2, 16]; ``cmac_full``: [*L, F, 16];
-    ``cmac_last``/``target``: [*L, 16] byte values.  -> bool[*L, V, B].
+    ``prf_blocks``: [N, V, 2, 16]; ``cmac_full``: [N, F, 16];
+    ``cmac_last``/``target``: [N, 16] byte values.  -> bool[N, V, B].
     """
-    ist, ost = hm.hmac_sha256_precompute(_pmk_key_block(pmk))
-    prf = hm.hmac_sha256_blocks(ist, ost, _block_words(prf_blocks, 1))
-    kck_bytes = []
-    for w in prf[:4]:
-        kck_bytes += [shr32(w, 24), shr32(w, 16) & 0xFF, shr32(w, 8) & 0xFF, w & 0xFF]
-    lead = cmac_last.dim() - 1
-    full = cmac_full.permute(lead, lead + 1, *range(lead))  # [F, 16, *L]
-    mac = aes128_cmac(torch.stack(kck_bytes), full, cmac_last.movedim(-1, 0),
-                      last_complete)
-    return (mac == _col(target.movedim(-1, 0), 2)).all(dim=0)
+    return _on_device("verify", cmac_match_cuda, vf.eapol_cmac_match_plain, pmk, prf_blocks,
+                      cmac_full, cmac_last, target, last_complete=last_complete)
 
 
 def net_match(pmk, net: PreppedNet):

@@ -15,11 +15,16 @@ arithmetic one plus an ``and`` that masks off the sign fill
 ``alu_ops`` and ``by_prim`` count the logical uint32 ops and so equal the
 JAX census.
 
+The same census, weighed by the elements each call computes, counts
+the work of the crack step's verify (:func:`verify_census`), the
+operations side of the K3 kernels' bound in ``chip_smoke.py``.
+
 Run: ``python -m dwpa_tpu_torch.ops.opcount`` (one JSON line; no device
 needed).
 """
 
 from collections import Counter
+from unittest import mock
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -119,6 +124,182 @@ def element_ops_per_pmk(it):
     4095 loop iterations (the 6-compression prologue, under 0.1%, is left
     out, as the JAX census leaves it out)."""
     return 2 * 4095 * it["alu_ops"]
+
+
+class _Graph(TorchFunctionMode):
+    """Records the 32-bit ops of a run as a graph of nodes, one per call,
+    each ``[class, operands, elements, output]``, for
+    :func:`_instructions`.  A logical right shift (``shr32``: a shift and
+    its sign mask) is one ``shift`` node, a rotate (``common.rotl32``,
+    ``rotr32``: the ``or`` of a word shifted left and the same word
+    shifted right) one ``rotate`` node, the card's funnel shift."""
+
+    def __init__(self):
+        super().__init__()
+        self.nodes = []
+        self.node_of = {}  # id(output) -> node index
+        self.uses = Counter()  # id(tensor) -> calls that read it
+        self.model = Counter()  # work counted by a model, not by nodes
+
+    def _use(self, a):
+        if isinstance(a, torch.Tensor):
+            self.uses[id(a)] += 1
+        elif isinstance(a, (list, tuple)):
+            for x in a:
+                self._use(x)
+
+    def _node(self, x):
+        i = self.node_of.get(id(x)) if isinstance(x, torch.Tensor) else None
+        return None if i is None or self.nodes[i][3] is not x else self.nodes[i]
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self._use(args)
+        self._use(list((kwargs or {}).values()))
+        prim = _PRIMS.get(func) or _VERIFY_PRIMS.get(func)
+        if prim is None or not isinstance(out, torch.Tensor):
+            return out
+        cls, ops = _CLASS[prim], list(args)
+        if prim == "and" and isinstance(args[1], int):
+            src = self._node(args[0])
+            if src is not None and src[0] == "shr":
+                src[0], cls, ops = None, "shift", src[1]  # shr32: one logical shift
+        elif prim == "or":
+            a, b = (self._node(x) for x in args[:2])
+            if a and b and {a[0], b[0]} == {"shl", "shift"} and a[1][0] is b[1][0]:
+                a[0] = b[0] = None  # both shifts fold into the rotate
+                cls, ops = "rotate", a[1]
+        self.node_of[id(out)] = len(self.nodes)
+        self.nodes.append([cls, ops, out.numel(), out])
+        return out
+
+
+# The classes of op the card issues as one instruction each: a logic op
+# of up to 3 inputs (LOP3), an add of up to 3 (IADD3), a shift, a rotate
+# (a funnel shift), a comparison.  ``shl`` and ``shr`` are shifts until
+# they prove to be half of a rotate or a logical shift.
+_CLASS = {"and": "logic", "or": "logic", "xor": "logic", "not": "logic", "add": "add",
+          "shift_left": "shl", "shift_right_logical": "shr", "eq": "eq"}
+# Beside ``_PRIMS``: a tensor sum reaches the mode as ``Tensor.add``.
+_VERIFY_PRIMS = {torch.Tensor.add: "add", torch.Tensor.__eq__: "eq",
+                 torch.Tensor.__invert__: "not"}
+_FUSED = ("logic", "add")
+
+
+def _instructions(graph):
+    """Instructions by class, each node weighed by its elements: a logic
+    or add node absorbs an operand node of its own class that nothing
+    else reads while the fused op keeps at most 3 inputs (each immediate
+    one input).  -> Counter."""
+    leaves, out = {}, Counter()
+    for i, (cls, ops, n, _) in enumerate(graph.nodes):
+        if cls is None:
+            continue
+        if cls not in _FUSED:
+            out["shift" if cls in ("shl", "shr") else cls] += n
+            continue
+        own = []
+        for x in ops:
+            j = graph.node_of.get(id(x)) if isinstance(x, torch.Tensor) else None
+            own.append(j if j is not None and graph.nodes[j][0] == cls
+                       and graph.nodes[j][3] is x and graph.uses[id(x)] == 1 else None)
+        best = None
+        for mask in range(1 << len(ops)):
+            if any(mask >> k & 1 and own[k] is None for k in range(len(ops))):
+                continue
+            got = set()
+            for k, x in enumerate(ops):
+                got |= leaves[own[k]] if mask >> k & 1 else {id(x) if isinstance(
+                    x, torch.Tensor) else ("imm", i, k)}
+            if len(got) <= 3 and (best is None or bin(mask).count("1") > best[0]):
+                best = (bin(mask).count("1"), mask, got)
+        _, mask, leaves[i] = best
+        for k in range(len(ops)):
+            if mask >> k & 1:
+                graph.nodes[own[k]][0] = None
+                out[cls] -= graph.nodes[own[k]][2]
+        out[cls] += n
+    return out
+
+
+# AES-128 on four 32-bit column words with T-tables, at its least, in
+# the instructions above: a round is 16 byte extracts, 16 table loads
+# and 8 three-input xors (each column's 4 lookups and its round-key
+# word); the last round 16 extracts, 16 S-box loads, 12 byte inserts and
+# 4 xors.  The first AddRoundKey (4 xors) takes the CMAC chain's xor
+# with it.  A round key is one SubWord(RotWord) (4 extracts, 4 loads, 3
+# inserts) and 4 xors, the rcon folded into the first; CMAC's doubling 4
+# funnel shifts and 3 ops for the 0x87 reduction.
+AES_BLOCK = {"aes_alu": 4 + 9 * 24 + 32, "aes_loads": 10 * 16}
+AES_KEY_SCHEDULE = {"aes_alu": 10 * 11, "aes_loads": 10 * 4}
+CMAC_DBL_ALU = 7
+
+
+def cmac_model(blocks, last_complete):
+    """T-table AES-128-CMAC work for one key: the key schedule, the
+    subkey L = AES(0) and its doubling (twice for a padded last block),
+    and ``blocks`` chained blocks, the last with 4 xors more for the
+    subkey.  -> {"aes_alu": n, "aes_loads": n}."""
+    out = {k: AES_KEY_SCHEDULE[k] + (1 + blocks) * AES_BLOCK[k] for k in AES_BLOCK}
+    out["aes_alu"] += CMAC_DBL_ALU * (1 if last_complete else 2) + 4
+    return out
+
+
+def _operands(kind, n, v, rows, b):
+    """Zero CPU tensors in the shapes of a verify part's operands (a few
+    columns: small, and far quicker to run than meta tensors): ``pmk``
+    int32[8, b] and the constants of ``n`` nets with ``v`` variants and
+    ``rows`` EAPOL (or full CMAC) blocks."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32)
+
+    pmk = z(8, b)
+    if kind == "pmkid":
+        return pmk, (z(n, 16), z(n, 4))
+    if kind == "eapol":
+        return pmk, (z(n, v, 2, 16), z(n, rows, 16), z(n, 4))
+    return pmk, (z(n, v, 2, 16), z(n, rows, 16), z(n, 16), z(n, 16))
+
+
+def _verify_counts(kind, static, n, v, rows, b):
+    from . import verify as vf
+
+    pmk, consts = _operands(kind, n, v, rows, b)
+    calls = vf.CALLS
+    with _Graph() as graph:
+        if kind == "pmkid":
+            vf.pmkid_plain(pmk, *consts)
+        elif kind == "eapol":
+            vf.eapol_match_plain(pmk, *consts, keyver=static[0])
+        else:
+            def aes_cmac(key16, full, last, last_complete):
+                for k, c in cmac_model(full.shape[0] + 1, last_complete).items():
+                    graph.model[k] += key16.numel() // 16 * c
+                return torch.zeros_like(key16)
+
+            with mock.patch.object(vf, "aes128_cmac", aes_cmac):
+                vf.eapol_cmac_match_plain(pmk, *consts, last_complete=static[0])
+    vf.CALLS = calls  # a census, not a verify
+    return _instructions(graph) + graph.model
+
+
+def verify_census(kind, static, n, v, rows, b):
+    """The instructions one verify part needs (``kind`` and ``static`` as
+    in ``parallel/step._KINDS``; ``n`` nets, ``v`` variants, ``rows``
+    EAPOL or full CMAC blocks) on ``b`` PMK columns, from its plain
+    version in ``ops/verify.py`` run on 1 and 2 columns: every element of
+    every 32-bit op, fused into the card's 3-input logic and add
+    instructions where the dataflow allows, a rotate or a logical shift
+    one instruction, work on a net's constants counted once, and
+    AES-128-CMAC at the T-table model above.  It grows as ``per_column *
+    b + per_part``.
+    -> {"ops", "per_column", "per_part", "by_class"}."""
+    one, two = (_verify_counts(kind, static, n, v, rows, c) for c in (1, 2))
+    by_class = {c: two[c] - one[c] for c in sorted(two) if two[c] - one[c]}
+    per_col = sum(by_class.values())
+    per_part = sum(one.values()) - per_col
+    return {"ops": per_col * b + per_part, "per_column": per_col, "per_part": per_part,
+            "by_class": by_class}
 
 
 def main():

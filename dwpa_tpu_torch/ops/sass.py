@@ -4,7 +4,8 @@
 ``cuobjdump -sass`` (on the machine with the CUDA toolkit); the readers
 of that text run anywhere: :func:`loop_span` counts a kernel's
 instructions in and outside its hot loop, :func:`loop_opcodes` gives the
-loop's instruction mix.  The hot loop is the longest
+loop's instruction mix, and :func:`dynamic_count` the instructions one
+thread issues given its loops' trip counts.  The hot loop is the longest
 backward-branch span of the kernel's code; NOPs are not counted.
 Kernel bounds in ``chip_smoke.py`` and the SM probe's per-step counts are
 built on these numbers.
@@ -40,9 +41,9 @@ def _is_branch(op):
     return any(tok == "BRA" or tok.startswith("BRA.") for tok in op.split())
 
 
-def _loop(text, kernel):
+def _backward_branches(text, kernel):
     """The instructions of ``kernel`` in a ``cuobjdump -sass`` listing
-    ``text``, and the (first, last) index of its hot loop."""
+    ``text``, and the (first, last) index span of each backward branch."""
     insts, labels, pending = [], {}, []
     for line in _kernel_lines(text, kernel):
         lab = _LABEL.match(line)
@@ -58,7 +59,7 @@ def _loop(text, kernel):
         pending = []
         insts.append((addr, m.group(2).strip()))
     index = {addr: i for i, (addr, _) in enumerate(insts)}
-    best = None
+    spans = []
     for i, (_, op) in enumerate(insts):
         if not _is_branch(op):
             continue
@@ -69,12 +70,17 @@ def _loop(text, kernel):
             target = int(a.group(1), 16) if a else None
         if target is None or target not in index or index[target] > i:
             continue
-        span = (index[target], i)
-        if best is None or span[1] - span[0] > best[1] - best[0]:
-            best = span
-    if best is None:
+        spans.append((index[target], i))
+    return [op for _, op in insts], spans
+
+
+def _loop(text, kernel):
+    """The instructions of ``kernel`` and the (first, last) index of its
+    hot loop, the longest backward-branch span."""
+    ops, spans = _backward_branches(text, kernel)
+    if not spans:
         raise ValueError(f"no loop found in the SASS of {kernel!r}")
-    return [op for _, op in insts], best
+    return ops, max(spans, key=lambda sp: sp[1] - sp[0])
 
 
 def _opcode(op):
@@ -102,3 +108,36 @@ def sass_text(so):
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     return subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
+
+
+def _loops(spans):
+    """Backward-branch spans merged into loops: one (first, last) per
+    branch target, outermost and earliest first.  The self-branch that
+    ends every kernel, after its last ``EXIT``, is no loop."""
+    ends = {}
+    for first, last in spans:
+        if last > first:
+            ends[first] = max(last, ends.get(first, last))
+    return sorted(ends.items(), key=lambda sp: (sp[0], -sp[1]))
+
+
+def dynamic_count(text, kernel, trips):
+    """Thread-instructions one thread of ``kernel`` issues (NOPs left out)
+    when its loops (outermost and earliest first) run ``trips[k]`` times
+    each: an instruction counts once per trip of every loop around it.
+    Raises, naming the loops' (first, last) instruction indices, if the
+    kernel has another number of loops than ``trips`` names."""
+    ops, spans = _backward_branches(text, kernel)
+    loops = _loops(spans)
+    if len(loops) != len(trips):
+        raise ValueError(f"{kernel!r} has {len(loops)} loops {loops}, {len(trips)} trip counts")
+    total = 0
+    for i, op in enumerate(ops):
+        if _opcode(op) == "NOP":
+            continue
+        n = 1
+        for (first, last), trip in zip(loops, trips):
+            if first <= i <= last:
+                n *= trip
+        total += n
+    return total

@@ -8,10 +8,12 @@ only per-batch sync before it fetches the (rare) positives.
 Nets are grouped by verify signature (kind, static parameters, constant
 shapes).  Each group's constants are stacked along a leading net axis,
 padded to a power-of-two bucket, and verified as one ``[N, V, B]`` batch
-of torch ops — nets and nonce-correction variants are tensor dimensions,
-never Python loops.  The step keeps two seams, ``compute_pmk`` and
-``verify``, so a PMK matrix that arrived by another route (the PMK
-store's ``mix_step``) can be verified unchanged.
+— one launch of the K3 verify kernel for a CUDA PMK matrix, its plain
+torch version for a CPU one (``models/m22000``); nets and
+nonce-correction variants are tensor dimensions, never Python loops.
+The step keeps two seams, ``compute_pmk`` and ``verify``, so a PMK
+matrix that arrived by another route (the PMK store's ``mix_step``) can
+be verified unchanged.
 """
 
 import numpy as np

@@ -11,6 +11,9 @@ of fake submissions.
 import hashlib
 import struct
 
+import numpy as np
+import torch
+
 from .models import hashline as hl
 from .oracle import m22000 as oracle
 
@@ -109,6 +112,92 @@ def make_eapol_line(
     return hl.serialize(
         hl.TYPE_EAPOL, mic, mac_ap, mac_sta, essid, anonce_rec, eapol, message_pair
     )
+
+
+# ---------------------------------------------------------------------------
+# Planted nets for the crack step's verify (K3 and its plain version)
+# ---------------------------------------------------------------------------
+
+#: Verify test cases: (keyver, EAPOL key data) of three nets each, with
+#: the exact nonce, an LE and a BE nonce correction (``VERIFY_NC``).
+#: Keyver 100 is PMKID; 29 key-data bytes make keyver 3's EAPOL frame a
+#: multiple of 16 bytes, so its last CMAC block is complete.
+VERIFY_CASES = {"pmkid": (100, None), "kv1": (1, None), "kv2": (2, None),
+                "kv3": (3, None), "kv3_complete": (3, b"\x30" * 29)}
+VERIFY_NC = [(0, ""), (2, "LE"), (-3, "BE")]
+
+
+def verify_case_specs(case):
+    """The three net specs ``(keyver, nc_delta, endian, key_data)`` of a
+    :data:`VERIFY_CASES` case."""
+    keyver, key_data = VERIFY_CASES[case]
+    return [(keyver, nc, endian, key_data) for nc, endian in VERIFY_NC]
+
+
+def verify_lines(specs, essid, tag):
+    """One hashline per spec ``(keyver, nc_delta, endian, key_data)``,
+    each with its own PSK ``<tag>-<i>``: a PMKID line for keyver 100, else
+    an EAPOL line whose MIC needs the nonce correction ``nc_delta`` (0:
+    the exact nonce).  -> [(line, psk)]."""
+    out = []
+    for i, (keyver, nc, endian, key_data) in enumerate(specs):
+        psk, seed = b"%s-%02d" % (tag.encode(), i), f"{tag}-{i}"
+        if keyver == 100:
+            line = make_pmkid_line(psk, essid, seed=seed)
+        else:
+            kw = dict(nc_delta=nc, endian=endian) if nc else {}
+            line = make_eapol_line(psk, essid, keyver=keyver, seed=seed, key_data=key_data, **kw)
+        out.append((line, psk))
+    return out
+
+
+def plant_pmks(pmk, essid, psks, columns):
+    """Write PSK i's real PMK (big-endian words) into the uint32[8, B]
+    matrix ``pmk`` at each column of ``columns[i]``.  -> {column: i}."""
+    planted = {}
+    for i, psk in enumerate(psks):
+        words = np.frombuffer(hashlib.pbkdf2_hmac("sha1", psk, essid, 4096, 32), ">u4")
+        for col in columns[i]:
+            if col in planted:
+                raise ValueError(f"column {col} planted twice")
+            pmk[:, col] = words
+            planted[col] = i
+    return planted
+
+
+def planted_hits(nets, specs, planted):
+    """The (net, variant, column) hits a verify must find for
+    :func:`plant_pmks`'s columns: each net's variant of its nonce
+    correction (the exact nonce's for PMKID and ``nc_delta`` 0)."""
+    def variant(i):
+        nc, endian = specs[i][1:3]
+        return 0 if nets[i].keyver == 100 else nets[i].variants.index(
+            (nc, endian) if nc else (0, None))
+
+    return {(i, variant(i), col) for col, i in planted.items()}
+
+
+def stacked_consts(nets):
+    """Nets of one verify part -> ``(kind, static, consts)``: their
+    constants stacked on a net axis, in the order of the kind's match
+    function (``parallel/step._KINDS``)."""
+    from .parallel.step import _KINDS, _kind_of
+
+    kind = _kind_of(nets[0])
+    statics, fields, _ = _KINDS[kind]
+    return kind, statics(nets[0]), [torch.stack([getattr(n, f) for n in nets]) for f in fields]
+
+
+def plain_part(kind, static, pmk, consts):
+    """A verify part through the plain version (``ops/verify.py``) on any
+    device, shaped as ``_KINDS[kind]``'s match: what K3 is held to."""
+    from .ops import verify as vf
+
+    if kind == "pmkid":
+        return vf.pmkid_plain(pmk, *consts)[:, None]
+    if kind == "cmac":
+        return vf.eapol_cmac_match_plain(pmk, *consts, last_complete=static[0])
+    return vf.eapol_match_plain(pmk, *consts, keyver=static[0])
 
 
 # ---------------------------------------------------------------------------

@@ -428,6 +428,33 @@ def test_cracked_dict_runs_in_pass1_with_rkg(server, tmp_path):
         "SELECT n_state FROM nets WHERE ssid = ?", (ESSID,))["n_state"] == 1
 
 
+def test_cracked_dict_refresh_cadence(server, tmp_path):
+    """cracked.txt.gz is downloaded for the first unit, then again only
+    every ``cracked_refresh`` units: four units through the port's
+    ``_prefetch_cracked`` download it at the same units as the JAX
+    client's (tests/test_client_loopback.py::test_cracked_dict_refresh_cadence)."""
+    _ingest(server, [jtfx.make_pmkid_line(PSK, ESSID, seed="cd2")])
+    _add_dict(server, [PSK], name="cracked.txt.gz")
+    client = _client(server, tmp_path, cracked_refresh=3)
+    jclient = JTpuCrackClient(
+        JClientConfig(base_url="http://loopback/", workdir=str(tmp_path / "jwork"),
+                      cracked_refresh=3),
+        api=JLoopbackAPI(make_wsgi_app(server)), log=lambda *a, **k: None)
+    work = client.api.get_work(client.dictcount)
+
+    def downloads(api):
+        return sum(1 for _, u in api.requests if "cracked.txt.gz" in u)
+
+    counts, jcounts = [], []
+    for _ in range(4):
+        files = client._prefetch_cracked(dict(work))
+        assert os.path.basename(files[0]) == "cracked.txt.gz"
+        counts.append(downloads(client.api))
+        list(jclient._cracked_candidates(dict(work), []))
+        jcounts.append(downloads(jclient.api))
+    assert counts == jcounts == [1, 1, 1, 2]
+
+
 def test_archive_logs_appended(server, tmp_path):
     _ingest(server, [jtfx.make_pmkid_line(PSK, ESSID, seed="ar1")])
     _add_dict(server, [PSK])

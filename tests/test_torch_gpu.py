@@ -1,5 +1,5 @@
-"""The port on a CUDA device: the PBKDF2 kernel, the engine, the SM
-probe kernel, the rule interpreter, the mask generator, the PMK
+"""The port on a CUDA device: the PBKDF2 kernel, the verify kernels
+(K3), the engine, the SM probe kernel, the rule interpreter, the mask generator, the PMK
 store's mixed blocks, mixed-ESSID unit fusion, the packed-dictionary
 cache's warm blocks, the server pre-crack's batcher, the Thomson
 serial sweep, and per-device streams on one card.
@@ -13,6 +13,7 @@ The file imports nothing of JAX, so on a machine without JAX it runs
 alone with ``--noconftest``.
 """
 
+import collections
 import hashlib
 
 import numpy as np
@@ -22,9 +23,10 @@ from torch_fixtures import (  # noqa: F401  (cuda_device is a fixture)
     PBKDF2_ESSID, SLICE_ESSID, SLICE_PSK, cuda_device, five_net_group, pbkdf2_inputs, salt_essid,
     slice_dictionary)
 
+from dwpa_tpu_torch import testing as tfx
 from dwpa_tpu_torch.client.challenge import challenge
 from dwpa_tpu_torch.models import m22000 as tm
-from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda, sm_probe
+from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda, sm_probe, verify, verify_cuda
 from dwpa_tpu_torch.ops.common import to_numpy, to_torch
 from dwpa_tpu_torch.utils import bytesops as bo
 
@@ -413,3 +415,69 @@ def test_streams_on_the_card_match_lockstep(cuda_device):  # noqa: F811
     assert runs[0] == runs[1] and len(runs[0][0]) == 5
     assert {k[4] for k in runs[1][0]} == {hashlib.pbkdf2_hmac("sha1", SLICE_PSK, SLICE_ESSID,
                                                              4096, 32)}
+
+
+# K3: the planted verify cases of ``dwpa_tpu_torch.testing`` (three nets
+# each: the exact nonce, an LE and a BE correction), each net's PSK
+# planted in two columns of a ragged batch.
+
+
+def _k3_case(kind, device, b=1000):
+    """(pmk int32[8, b], the nets, their stacked part (kind, static,
+    consts), the expected (net, variant, column) hits)."""
+    from dwpa_tpu_torch.models import hashline as hl
+
+    specs = tfx.verify_case_specs(kind)
+    lines = tfx.verify_lines(specs, SLICE_ESSID, f"card-k3-{kind}")
+    nets = [tm.prep_net(hl.parse(line), device=device) for line, _ in lines]
+    pmk = np.random.default_rng(31 + specs[0][0]).integers(0, 2**32, (8, b), dtype=np.uint64)
+    pmk = pmk.astype(np.uint32)
+    planted = tfx.plant_pmks(pmk, SLICE_ESSID, [psk for _, psk in lines],
+                             [(5 + 11 * i, b - 1 - i) for i in range(3)])
+    return (to_torch(pmk, device), nets, tfx.stacked_consts(nets),
+            tfx.planted_hits(nets, specs, planted))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(tfx.VERIFY_CASES))
+def test_k3_matches_plain(cuda_device, kind):  # noqa: F811
+    """K3 on a ragged batch of three nets: one launch, the plain version's
+    found matrix bit for bit on the card and on the CPU, the planted hits
+    (non-zero NC variants of both endians, the last column) exactly."""
+    from dwpa_tpu_torch.parallel.step import _KINDS
+
+    pmk, nets, (entry, static, consts), want = _k3_case(kind, cuda_device)
+    before = verify_cuda.LAUNCHES[entry], verify.CALLS
+    got = _KINDS[entry][2](pmk, static, *consts)
+    torch.cuda.synchronize()
+    assert (verify_cuda.LAUNCHES[entry], verify.CALLS) == (before[0] + 1, before[1])
+    assert torch.equal(got, tfx.plain_part(entry, static, pmk, consts))
+    cpu = tfx.plain_part(entry, static, pmk.cpu(), [c.cpu() for c in consts])
+    assert torch.equal(got.cpu(), cpu)
+    assert {tuple(int(x) for x in ix) for ix in got.nonzero()} == want
+    for i, net in enumerate(nets):   # one net, no net axis
+        assert torch.equal(tm.net_match(pmk, net), got[i])
+
+
+@pytest.mark.gpu
+def test_k3_wrappers_refuse_strided_operands(cuda_device):  # noqa: F811
+    pmk, _, (_, _, (prf, eap, tgt)), _ = _k3_case("kv2", cuda_device)
+    before = dict(verify_cuda.LAUNCHES)
+    with pytest.raises(ValueError):
+        verify_cuda.eapol_match_cuda(pmk, prf.transpose(2, 3).contiguous().transpose(2, 3),
+                                     eap, tgt, 2)
+    with pytest.raises(ValueError):
+        verify_cuda.eapol_match_cuda(pmk[:, ::2], prf, eap, tgt, 2)
+    assert dict(verify_cuda.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+def test_engine_verifies_through_k3(cuda_device):  # noqa: F811
+    """A five-net unit on the card: every verify part through K3, the
+    plain verify never called."""
+    eng = tm.M22000Engine(five_net_group(), batch_size=512, device=cuda_device)
+    before = collections.Counter(verify_cuda.LAUNCHES), verify.CALLS
+    founds = eng.crack(slice_dictionary())
+    assert len(founds) == 5 and {f.psk for f in founds} == {SLICE_PSK}
+    launched = verify_cuda.LAUNCHES - before[0]
+    assert set(launched) == {"pmkid", "eapol", "cmac"} and verify.CALLS == before[1]

@@ -20,9 +20,9 @@ from dwpa_tpu.ops import hmac as jhm
 from dwpa_tpu.ops import opcount as jopcount
 from dwpa_tpu.ops import sha1 as jsha1
 from dwpa_tpu_torch.ops import hmac as hm
-from dwpa_tpu_torch.ops import opcount, sha1, sm_probe
+from dwpa_tpu_torch.ops import common, opcount, sha1, sm_probe
 from dwpa_tpu_torch.ops.common import to_numpy, to_torch
-from dwpa_tpu_torch.ops.sass import loop_opcodes, loop_span
+from dwpa_tpu_torch.ops.sass import dynamic_count, loop_opcodes, loop_span
 
 B = 32
 
@@ -84,6 +84,68 @@ def test_census_matches_jax(form):
 def test_element_ops_per_pmk():
     it = opcount.pbkdf2_iteration_census(hoisted=True)
     assert opcount.element_ops_per_pmk(it) == 22_104_810
+
+
+# Expressions over four words of 4 elements -> the card's instructions
+# the verify census counts for them, by element (3-input logic and adds,
+# funnel-shift rotates; work on one element counted once).
+_FUSION = {
+    "rotate": (lambda a, b, c, d: common.rotl32(a, 5), {"rotate": 4}),
+    "rotr": (lambda a, b, c, d: common.rotr32(a, 7), {"rotate": 4}),
+    "logical_shift": (lambda a, b, c, d: common.shr32(a, 3), {"shift": 4}),
+    "ch": (lambda a, b, c, d: (b & c) | (~b & d), {"logic": 4}),
+    "xor4": (lambda a, b, c, d: a ^ b ^ c ^ d, {"logic": 8}),
+    "add5": (lambda a, b, c, d: common.wadd(a, b, c, d, 0x5A827999), {"add": 8}),
+    "shared": (lambda a, b, c, d: (lambda t: (t ^ c) + (t & d))(a ^ b),
+               {"logic": 12, "add": 4}),
+    "broadcast": (lambda a, b, c, d: (b[:1] ^ c[:1]) + a, {"logic": 1, "add": 4}),
+}
+
+
+@pytest.mark.parametrize("expr", sorted(_FUSION))
+def test_verify_census_fuses_instructions(expr):
+    fn, want = _FUSION[expr]
+    words = [torch.zeros((4,), dtype=torch.int32) for _ in range(4)]
+    with opcount._Graph() as graph:
+        fn(*words)
+    assert +opcount._instructions(graph) == want
+
+
+def test_verify_census_pmkid_is_four_sha1_compressions():
+    """Two pad states (224 rotates each), the inner block (a constant
+    message: its 64 schedule rotates are the net's, counted once) and the
+    outer; 4 compares a net.  A second net shares the pad states and the
+    3 rotates of the inner and the outer compression that read only the
+    column's pad state."""
+    c = opcount.verify_census("pmkid", (), 2, 1, 0, 1000)
+    one = opcount.verify_census("pmkid", (), 1, 1, 0, 1000)
+    per_net = c["per_column"] - one["per_column"]
+    assert one["by_class"]["rotate"] == 2 * 224 + 160 + 224
+    assert c["by_class"]["rotate"] == 2 * 224 + 2 * (160 + 224) - 2 * 3
+    assert c["by_class"]["eq"] == 2 * 4
+    assert one["per_column"] - per_net > 0           # the shared pad states
+    assert c["ops"] == c["per_column"] * 1000 + c["per_part"]
+
+
+@pytest.mark.parametrize("part", [("eapol", (1,)), ("eapol", (2,)), ("cmac", (False,)),
+                                  ("cmac", (True,))])
+def test_verify_census_grows_with_the_shapes(part):
+    """Counted at 1 and 2 columns, the census holds at any width, and its
+    per-column work is linear in the variants; the AES part is the
+    T-table model's, per variant."""
+    kind, static = part
+    census = [opcount.verify_census(kind, static, 1, v, 1, 5) for v in (1, 2, 3)]
+    direct = opcount._verify_counts(kind, static, 1, 2, 1, 5)
+    assert census[1]["ops"] == sum(direct[c] for c in census[1]["by_class"]) + \
+        sum(direct[c] for c in direct if c not in census[1]["by_class"])
+    steps = [census[i + 1]["per_column"] - census[i]["per_column"] for i in range(2)]
+    assert steps[0] == steps[1] > 0
+    if kind == "cmac":
+        aes = opcount.cmac_model(2, static[0])
+        assert aes == {"aes_alu": 110 + 3 * 252 + 7 * (1 if static[0] else 2) + 4,
+                       "aes_loads": 40 + 3 * 160}
+        for v, c in zip((1, 2, 3), census):
+            assert {k: c["by_class"][k] for k in aes} == {k: v * n for k, n in aes.items()}
 
 
 @pytest.mark.parametrize("mix", sorted(sm_probe.MIXES))
@@ -161,3 +223,16 @@ def test_sass_loop_span_on_canned_listing():
         loop_span(_SASS, "sm_probe")  # names two functions
     with pytest.raises(ValueError):
         loop_span(_SASS, "sm_probe_rotl")
+
+
+def test_sass_dynamic_count_on_canned_listing():
+    """K3's own issue counts what one thread issues: each instruction once
+    per trip of every loop around it; the kernel's closing self-branch is
+    no loop.  A wrong number of trip counts names the loops."""
+    assert dynamic_count(_SASS, "sm_probe_xor", [3]) == 8 + 4 * 3
+    assert dynamic_count(_SASS, "sm_probe_xor", [0]) == 8
+    assert dynamic_count(_SASS, "sm_probe_add", []) == 2
+    with pytest.raises(ValueError, match=r"has 1 loops \[\(5, 8\)\], 2 trip counts"):
+        dynamic_count(_SASS, "sm_probe_xor", [3, 2])
+    with pytest.raises(ValueError, match=r"has 0 loops \[\], 1 trip counts"):
+        dynamic_count(_SASS, "sm_probe_add", [1])

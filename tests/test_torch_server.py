@@ -25,11 +25,13 @@ import io
 import itertools
 import json
 import shutil
+import types
 from contextlib import closing
 from pathlib import Path
 
 import pytest
 
+import dwpa_tpu.obs.metrics as jmetrics
 import dwpa_tpu.server.__main__ as jmain
 import dwpa_tpu.server.core as jcore
 from dwpa_tpu import testing as jtfx
@@ -40,6 +42,7 @@ from dwpa_tpu.server import make_wsgi_app as jmake_wsgi_app
 from dwpa_tpu.server.capture import extract_hashlines as jextract
 from dwpa_tpu_torch import testing as tfx
 from dwpa_tpu_torch.models import hashline as hl
+from dwpa_tpu_torch.obs import metrics as tmetrics
 from dwpa_tpu_torch.server import Database, ServerCore, make_wsgi_app
 from dwpa_tpu_torch.server import __main__ as tmain
 from dwpa_tpu_torch.server import core as tcore
@@ -58,11 +61,20 @@ TIME_COLS = {"ts", "sts", "issued"}
 
 @pytest.fixture(autouse=True)
 def pinned(monkeypatch):
-    """The same key stream and clock in both packages' cores."""
+    """The same key stream and clock in both packages' cores, and the
+    clock ``gzip`` stamps into a header when a caller gives no ``mtime``
+    (both servers' ``?prdict`` bodies), so equal bodies never depend on
+    the two runs falling in the same second.  Each package's
+    process-default metrics registry starts empty, so a server's
+    ``?metrics`` page holds what this test registered, not what an
+    earlier test in the same process did."""
     for mod in (tcore, jcore):
         keys = itertools.count(1)
         monkeypatch.setattr(mod, "gen_key", lambda k=keys: "%032x" % next(k))
         monkeypatch.setattr(mod, "now", lambda: 1_700_000_000.0)
+    monkeypatch.setattr(gzip, "time", types.SimpleNamespace(time=lambda: 1_700_000_000.0))
+    for metrics in (tmetrics, jmetrics):
+        monkeypatch.setattr(metrics, "_DEFAULT", metrics.MetricsRegistry())
 
 
 def call(app, method="GET", qs="", body=b"", path="/", ctype=None, cookie=None,
