@@ -149,24 +149,34 @@ hashlib.  Phases, each printed as it ends:
    pass-2 K1 launch covering its half of the dict, and rank 0 alone
    reporting the slice's PMK/s.
 15. K3 against its plain version on the card at phase 4's width with a
-   ragged tail (B = 131069): ten nets, each with its own PSK planted
-   (hashlib PMKs among random ones) — PMKID, keyver 1 (three nets, one
-   part bucket-padded to four rows), keyver 2, keyver 3 with a padded and
-   with a complete last CMAC block — with hits in non-zero NC variants of
-   both endians and at column B - 1; every part's and every single net's
-   found matrix bit for bit equal to the plain version on the card, the
-   step's equal to the CPU plain version on sampled columns, and a CMAC
-   with no full block (F = 0) both ways.
+   ragged tail (B = 131069): thirteen nets, each with its own PSK planted
+   (hashlib PMKs among random ones) — PMKID, keyver 1 and keyver 2 (three
+   nets each, parts bucket-padded to four rows), keyver 3 at F = 7 with a
+   padded and with a complete last CMAC block, at F = 15 complete and at F
+   = 16 padded; the AP nonce at offsets 0 and 32 of the PRF's nonce pair
+   for each keyver, LE corrections at 0 changing keyver 1/2's PRF block 0
+   — with hits in non-zero NC variants of both endians and at column
+   B - 1; every part's and every single net's found matrix bit for bit
+   equal to the plain version on the card, the step's equal to the CPU
+   plain version on sampled columns, and a CMAC with no full block (F = 0)
+   both ways; every part's time beside its bounds, and cmac's time at F =
+   0, 7 and 15 (V = 21): its slope per AES block beside the block's table
+   loads at shared memory's rate, its intercept the SHA-256 side.
+   15b: K3's weight in a large ESSID group: one 32-net keyver 2 part and
+   one 8-net keyver 3 part at B = 131072, timed beside K1's batch and held
+   to the plain version on 4096 columns.
 
 From phase 6 on, every phase that verifies counts K3's launches (by
 entry) and holds the plain verify at 0 calls; K3's ``launches_by_path``
 are these counts, every run of a phase included.
 
-It then prints K3's bounds per verify part (the instructions its
-function needs, ``ops/opcount.py`` ``verify_census``, at the issue rate,
-against its bytes at the HBM rate; K3's own SASS beside it), the kernel
-records as one JSON line (K1, K2 and K3's three entries) and, last,
-``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
+It then prints K3's bounds per verify part of phase 4 (the instructions
+its function needs, ``ops/opcount.py`` ``verify_census``, at the issue
+rate and at the ``sha1_round`` probe's rate, keyver 3's AES table loads
+at shared memory's rate, its bytes at the HBM rate; K3's own SASS beside
+them; a part faster than its census at the issue rate fails the run),
+the kernel records as one JSON line (K1, K2 and K3's three entries) and,
+last, ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 nonzero and the ``ok`` line is not printed.  Without a CUDA device it
 exits nonzero before doing anything.
 """
@@ -211,6 +221,11 @@ K3_ENTRIES = {
 K3_PARTS = [("pmkid", ()), ("eapol", (1,)), ("eapol", (2,)), ("cmac", (False,))]
 K3_B = UNIT_BATCH - 3                  # 15: a ragged width at phase 4's scale
 K3_SAMPLE = 512                        # 15: columns held to the CPU plain version
+K3_SPLIT_F = (0, 7, 15)                # 15: cmac timed at these F (V = 21)
+K3_SPLIT_REPS = 21                     # 15: launches a median of the F sweep takes
+K3_WIDE = {"eapol": 32, "cmac": 8}     # 15b: nets in one large ESSID group's part
+K3_WIDE_CHECK = 4096                   # 15b: columns held to the plain version
+SMEM_LANES_PER_SM_CLOCK = 32           # shared memory: one warp's 32 lanes a clock an SM
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3 (NVIDIA data sheet)
 STUB_URL = "http://stub/"
 STUB_DICT = "dict/phase4.txt.gz"
@@ -417,6 +432,29 @@ def part_label(kind, static, n):
     return f"{kind}{list(static)} x{n}"
 
 
+def block0_runs(kind, consts):
+    """The distinct PRF blocks 0 a keyver 1/2 part's kernel compresses per
+    column, summed over its nets: the run starts of its derived variant
+    order (``ops/verify_prep``).  None for other kinds."""
+    from dwpa_tpu_torch.ops.verify_prep import NEW_BLOCK0
+
+    if kind != "eapol":
+        return None
+    return int(((consts[3] & NEW_BLOCK0) != 0).sum())
+
+
+def k3_trips(kind, n, v, rows, runs):
+    """One K3 thread's loop trips for ``ops/sass.dynamic_count``, outermost
+    first: eapol's runs of variants that share PRF block 0 (``runs`` over
+    ``n`` nets, so a thread's mean), the run's variants, the E EAPOL
+    blocks; cmac's variants and its F + 2 AES blocks; none for pmkid."""
+    if kind == "pmkid":
+        return []
+    if kind == "eapol":
+        return [runs / n, v * n / runs, rows]
+    return [v, rows + 2]
+
+
 def phase_unit(dev, rng, card):
     """Phase 4: the work unit at full size, then a per-stage breakdown.
     Returns, beside K1's numbers, K3's launches by entry and its parts
@@ -424,7 +462,7 @@ def phase_unit(dev, rng, card):
     import torch
 
     from dwpa_tpu_torch.models.m22000 import M22000Engine
-    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda, verify, verify_cuda
+    from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda, verify, verify_cuda, verify_prep
     from dwpa_tpu_torch.testing import plain_part
 
     lines = unit_lines()
@@ -436,12 +474,14 @@ def phase_unit(dev, rng, card):
     pbkdf2.CALLS = 0
     verify_cuda.LAUNCHES.clear()
     verify.CALLS = 0
+    verify_prep.BUILDS, verify_prep.BUILD_SECONDS = 0, 0.0
     t0 = time.perf_counter()
     unit_founds = founds = eng.crack(words)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS
     k3_launches, verify_calls = dict(verify_cuda.LAUNCHES), verify.CALLS
+    prep_builds, prep_s = verify_prep.BUILDS, verify_prep.BUILD_SECONDS
     check(launches > 0, "the unit never launched the PBKDF2 kernel")
     check(plain_calls == 0, f"the unit ran the plain PBKDF2 {plain_calls} times")
     check(set(k3_launches) == set(K3_ENTRIES) and min(k3_launches.values()) > 0,
@@ -458,8 +498,9 @@ def phase_unit(dev, rng, card):
     unit_pmk_s = UNIT_WORDS / wall
     print(f"phase 4 unit: {len(founds)}/5 nets cracked, {UNIT_WORDS} words in {wall:.3f} s = "
           f"{UNIT_WORDS / wall:.1f} PMK/s; kernel launches {launches}, plain PBKDF2 calls "
-          f"{plain_calls}; K3 launches {k3_launches}, plain verify calls {verify_calls}; "
-          f"stage host seconds {eng.stage_times} [{card}]", flush=True)
+          f"{plain_calls}; K3 launches {k3_launches}, plain verify calls {verify_calls}, K3's "
+          f"derived constants built {prep_builds} times in {prep_s:.4f} host s (at step build, "
+          f"in dispatch); stage host seconds {eng.stage_times} [{card}]", flush=True)
 
     # Breakdown on one full batch of the same dictionary (a fresh engine).
     eng = M22000Engine([ln for ln, _ in lines], batch_size=UNIT_BATCH, device=dev)
@@ -471,7 +512,11 @@ def phase_unit(dev, rng, card):
     pmk_dev = step.compute_pmk(pw)
     verify_ms = cuda_ms(lambda: step.verify(pmk_dev), 5)
     parts, k3_parts = [], []
-    for kind, static, n, consts in verify_parts(step, eng._full[essid]):
+    unit_parts = verify_parts(step, eng._full[essid])
+    check(prep_builds == sum(kind != "pmkid" for kind, *_ in unit_parts),
+          f"phase 4: K3's derived constants built {prep_builds} times for {len(unit_parts)} "
+          f"parts: once per keyver 1/2/3 part, when the step is built")
+    for kind, static, n, consts in unit_parts:
         ms = cuda_ms(lambda: kernel_match(kind, static, pmk_dev, consts), 5)
         plain_ms = cuda_ms(lambda: plain_part(kind, static, pmk_dev, consts), 3)
         check(torch.equal(kernel_match(kind, static, pmk_dev, consts),
@@ -479,8 +524,10 @@ def phase_unit(dev, rng, card):
               f"phase 4: K3 != plain on {part_label(kind, static, n)}")
         v = 1 if kind == "pmkid" else consts[0].shape[1]
         rows = 0 if kind == "pmkid" else consts[1].shape[1]
-        k3_parts.append((kind, static, consts[0].shape[0], v, rows, ms, plain_ms))
-        parts.append(f"{part_label(kind, static, n)} (bucket {consts[0].shape[0]}, V {v}) K3 "
+        runs = block0_runs(kind, consts)
+        k3_parts.append((kind, static, consts[0].shape[0], v, rows, runs, ms, plain_ms))
+        parts.append(f"{part_label(kind, static, n)} (bucket {consts[0].shape[0]}, V {v}"
+                     f"{'' if runs is None else f', {runs} distinct PRF blocks 0'}) K3 "
                      f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
     dispatched = eng._dispatch(prep)
     torch.cuda.synchronize()
@@ -3275,21 +3322,25 @@ def k3_run(paths, label, fn, *args):
     return out
 
 
-#: Phase 15's nets as (keyver, NC delta, endian, EAPOL key data): two
-#: PMKID (keyver 100); three keyver 1 (one verify part bucket-padded to
-#: four rows); two keyver 2; two keyver 3 whose last CMAC block is padded
-#: and one whose EAPOL is a multiple of 16 bytes; hits in non-zero NC
-#: variants of both endians.
-K3_SPECS = [(100, 0, "", None), (100, 0, "", None), (1, 0, "", None), (1, 2, "LE", None),
-            (1, -1, "BE", None), (2, -3, "BE", None), (2, 1, "LE", None), (3, 0, "", None),
-            (3, -2, "BE", None), (3, 3, "LE", b"\x30" * 29)]
+#: Phase 15's nets as (keyver, NC delta, endian, EAPOL key data, AP nonce
+#: offset in the PRF's nonce pair): two PMKID (keyver 100); three keyver 1
+#: and three keyver 2 (each a verify part bucket-padded to four rows), at
+#: offsets 0 and 32, with LE corrections at offset 0 that change PRF block
+#: 0; keyver 3 at both offsets with F = 7 full CMAC blocks and a padded
+#: last block, F = 7 complete (29 key-data bytes), F = 15 complete (157)
+#: and F = 16 padded (160); hits in non-zero NC variants of both endians.
+K3_SPECS = [(100, 0, "", None, None), (100, 0, "", None, None),
+            (1, 0, "", None, 0), (1, 2, "LE", None, 0), (1, -1, "BE", None, 32),
+            (2, -3, "BE", None, 32), (2, 1, "LE", None, 0), (2, -2, "LE", None, 0),
+            (3, 0, "", None, 0), (3, -2, "BE", None, 32), (3, 3, "LE", b"\x30" * 29, 0),
+            (3, 2, "LE", b"\x41" * 157, 32), (3, -1, "BE", b"\x42" * 160, 0)]
+K3_SHORT = {True: b"sixteen byte msg", False: b"seven b"}   # F = 0, last_complete
 
 
-def phase_k3(dev, rng, card):
+def phase_k3(dev, rng, card, k1_ms, rates, sass):
     """Phase 15: K3 against its plain version on the card, at phase 4's
-    width with a ragged tail.  Returns max_abs_err by entry."""
-    import dataclasses
-
+    width with a ragged tail; every part's bounds, and cmac's time at F =
+    0, 7 and 15; then 15b.  Returns max_abs_err by entry."""
     import torch
 
     from dwpa_tpu_torch import testing as tfx
@@ -3304,6 +3355,8 @@ def phase_k3(dev, rng, card):
     b = K3_B
     lines = tfx.verify_lines(K3_SPECS, essid, "k3-phase15")
     nets = [m.prep_net(hl.parse(line), device=dev) for line, _ in lines]
+    ap_offs = [None if n.keyver == 100 else oracle.nonce_pairs(n.line)[2] for n in nets]
+    check(ap_offs == [spec[4] for spec in K3_SPECS], f"phase 15: AP nonce offsets {ap_offs}")
     pmk = rng.integers(0, 2**32, (8, b), dtype=np.uint64).astype(np.uint32)
     # each net at one column spread over the batch and one in the last
     # block; net 0 at column B - 1
@@ -3326,11 +3379,19 @@ def phase_k3(dev, rng, card):
     parts = verify_parts(step, nets)
     check(launched == dict(collections.Counter(kind for kind, *_ in parts)),
           f"phase 15: K3 launches {launched} for parts {[p[:3] for p in parts]}")
-    check(any(n == 3 and consts[0].shape[0] == 4 for _, _, n, consts in parts),
-          "phase 15: no bucket-padded part of 3 nets")
+    check(sum(n == 3 and consts[0].shape[0] == 4 for _, _, n, consts in parts) == 2,
+          "phase 15: not two bucket-padded parts of 3 nets")
+    check({consts[1].shape[1] for kind, _, _, consts in parts if kind == "cmac"} == {7, 15, 16},
+          "phase 15: keyver 3 parts not at F = 7, 15 and 16")
+    bounds = []
     for kind, static, n, consts in parts:
         held(kind, kernel_match(kind, static, pmk_dev, consts),
              tfx.plain_part(kind, static, pmk_dev, consts), part_label(kind, static, n))
+        ms = cuda_ms(lambda: kernel_match(kind, static, pmk_dev, consts), 5)
+        v, rows = (1, 0) if kind == "pmkid" else (consts[0].shape[1], consts[1].shape[1])
+        bounds.append(k3_part_bound(kind, static, consts[0].shape[0], v, rows,
+                                    block0_runs(kind, consts), b, ms, rates, sass,
+                                    f"phase 15 {part_label(kind, static, n)}"))
     for i, net in enumerate(nets):
         entry, static, consts = tfx.stacked_consts([net])
         got = m.net_match(pmk_dev, net)
@@ -3348,76 +3409,188 @@ def phase_k3(dev, rng, card):
     cpu_hits, cpu_found, _ = cpu_step.verify(pmk_dev.index_select(1, idx).cpu())
     check(torch.equal(cpu_found, found.index_select(2, idx).cpu()),
           f"phase 15: the card's found matrix != the CPU plain version's on {len(cols)} columns")
-    # F = 0: a CMAC over one block only (the prep never makes one: an
-    # EAPOL frame is longer than 16 bytes), complete and padded, with
-    # the hit planted at net 7's columns under its real KCK.
-    i = 7
-    h = hl.parse(lines[i][0])
-    mac_m, mac_n, _ = oracle.nonce_pairs(h)
-    cols7 = sorted(c for c, j in planted.items() if j == i)
-    for msg in (b"sixteen byte msg", b"seven b"):
-        complete = len(msg) == 16
-        last = msg if complete else msg + b"\x80" + b"\x00" * (15 - len(msg))
-        mic = oracle.compute_mic(hashlib.pbkdf2_hmac("sha1", lines[i][1], essid, 4096, 32), 3,
-                                 mac_m, mac_n, msg)
-        short = dataclasses.replace(
-            nets[i], cmac_full=torch.zeros((0, 16), dtype=torch.int32, device=dev),
-            cmac_last=to_torch(np.frombuffer(last, np.uint8).astype(np.uint32), dev),
-            cmac_last_complete=complete,
-            cmac_target=to_torch(np.frombuffer(mic, np.uint8).astype(np.uint32), dev))
+    # F = 0: a CMAC over one block only, complete and padded, with the hit
+    # planted at the first keyver 3 net's columns under its real KCK.
+    i = next(j for j, spec in enumerate(K3_SPECS) if spec[0] == 3 and spec[1] == 0)
+    cols_i = sorted(c for c, j in planted.items() if j == i)
+    split = {}
+    for complete, msg in K3_SHORT.items():
+        short = tfx.short_cmac_net(nets[i], lines[i][1], essid, msg)
         _, static, consts = tfx.stacked_consts([short, short])
         got = kernel_match("cmac", static, pmk_dev, consts)
         held("cmac", got, tfx.plain_part("cmac", static, pmk_dev, consts),
              f"F = 0, last_complete {complete}")
         check({tuple(int(x) for x in ix) for ix in got.nonzero()} ==
-              {(r, 0, c) for r in (0, 1) for c in cols7},
+              {(r, 0, c) for r in (0, 1) for c in cols_i},
               f"phase 15: F = 0 (last_complete {complete}) hits {got.nonzero().tolist()}")
+        if complete:
+            split[0] = (short, static)
+    # cmac's time split: one net, V = 21, at F = 0, 7 and 15.
+    for net in nets:
+        if net.keyver == 3 and net.cmac_full.shape[0] in K3_SPLIT_F:
+            split.setdefault(net.cmac_full.shape[0], (net, (net.cmac_last_complete,)))
+    split_ms, split_recs = {}, {}
+    for f in K3_SPLIT_F:
+        net, static = split[f]
+        _, _, consts = tfx.stacked_consts([net])
+        split_ms[f] = cuda_ms(lambda: kernel_match("cmac", static, pmk_dev, consts),
+                              K3_SPLIT_REPS)
+        split_recs[f] = k3_part_bound("cmac", static, 1, consts[0].shape[1], f, None, b,
+                                      split_ms[f], rates, sass, f"phase 15 cmac at F = {f}")
+    f0, f1 = K3_SPLIT_F[0], K3_SPLIT_F[-1]
+    slope = (split_ms[f1] - split_ms[f0]) / (f1 - f0)
+    smem_block = (split_recs[f1]["smem_bound_ms"] - split_recs[f0]["smem_bound_ms"]) / (f1 - f0)
     print(f"phase 15 K3: {len(nets)} nets in {len(parts)} parts "
-          f"({', '.join(part_label(k, st, n) for k, st, n, _ in parts)}) over B={b}: found "
-          f"matrices bit for bit equal to the plain version on the card (every part, bucket "
-          f"rows included, and every net alone) and to the CPU plain version on {len(cols)} "
-          f"columns; {len(want)} planted hits (NC variants of both endians, column B-1) found "
-          f"exactly; F = 0 with last_complete True and False; K3 launches {launched}; "
-          f"max_abs_err {err} [{card}]", flush=True)
+          f"({', '.join(part_label(k, st, n) for k, st, n, _ in parts)}) over B={b}, AP nonce "
+          f"offsets by net {ap_offs}: found matrices bit for bit equal to the plain version on "
+          f"the card (every part, bucket rows included, and every net alone) and to the CPU "
+          f"plain version on {len(cols)} columns; {len(want)} planted hits (NC variants of both "
+          f"endians, LE at offset 0, column B-1) found exactly; F = 0 with last_complete True "
+          f"and False; K3 launches {launched}; max_abs_err {err} [{card}]", flush=True)
+    for (kind, static, n, _), rec in zip(parts, bounds):
+        print(f"phase 15 {k3_bound_line(rec, b, part_label(kind, static, n))} [{card}]",
+              flush=True)
+    print(f"phase 15 cmac time split (one net, V 21, B={b}, median of {K3_SPLIT_REPS}): "
+          + ", ".join(f"F = {f} {split_ms[f]:.3f} ms (smem bound "
+                      f"{split_recs[f]['smem_bound_ms']:.3f}, issue-rate census "
+                      f"{split_recs[f]['issue_bound_ms']:.3f})" for f in K3_SPLIT_F)
+          + f"; slope {slope:.4f} ms per AES block a (variant, column) against its 160 table "
+          f"loads at shared memory's rate {smem_block:.4f} ms ({smem_block / slope:.1%}); "
+          f"intercept (the SHA-256 side, the key schedule and 2 AES blocks) "
+          f"{split_ms[f0] - f0 * slope:.3f} ms [{card}]", flush=True)
+    for entry, e in phase_k3_wide(dev, rng, card, k1_ms, rates, sass).items():
+        err[entry] = max(err[entry], e)
     return err
 
 
-def k3_bounds(parts, sass, b, issue_per_s, card):
-    """K3's bounds at phase 4's shapes, one per verify part (one launch
-    each): the instructions the part's function needs (``ops/opcount.py``
-    ``verify_census``: its plain version's 32-bit ops fused into the
-    card's 3-input instructions, AES-128 at the T-table model) at the
-    issue rate, against 32 PMK bytes in and N x V result bytes out per
-    column at the HBM rate; beside it, what K3's own SASS issues (each
-    instruction once per trip of the loops around it, N x B threads).
-    An entry's ms, plain ms and bounds are the sums over its parts."""
+def phase_k3_wide(dev, rng, card, k1_ms, rates, sass):
+    """Phase 15b: K3's weight in a large ESSID group.  One 32-net keyver 2
+    part and one 8-net keyver 3 part (F = 7) at B = 131072, timed against
+    K1's time per batch (phase 4), each held to its plain version on its
+    first ``K3_WIDE_CHECK`` columns, where every net's PSK is planted.
+    Returns max_abs_err by entry."""
+    import torch
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.models import hashline as hl
+    from dwpa_tpu_torch.models import m22000 as m
+    from dwpa_tpu_torch.ops.common import to_torch
+
+    essid = b"dwpa-torch-k3-wide"
+    b = UNIT_BATCH
+    ncs = [(0, ""), (1, "LE"), (-2, "LE"), (2, "BE"), (-1, "BE"), (3, "LE"), (-3, "BE")]
+    err = {}
+    for kind, n in K3_WIDE.items():
+        keyver = 2 if kind == "eapol" else 3
+        specs = [(keyver, *ncs[i % len(ncs)], None, 32 * (i % 2)) for i in range(n)]
+        lines = tfx.verify_lines(specs, essid, f"k3-wide-{kind}")
+        nets = [m.prep_net(hl.parse(line), device=dev) for line, _ in lines]
+        pmk = rng.integers(0, 2**32, (8, b), dtype=np.uint64).astype(np.uint32)
+        planted = tfx.plant_pmks(pmk, essid, [psk for _, psk in lines],
+                                 [(17 + 97 * i,) for i in range(n)])
+        want = tfx.planted_hits(nets, specs, planted)
+        _, static, consts = tfx.stacked_consts(nets)
+        pmk_dev = to_torch(pmk, dev)
+        got = kernel_match(kind, static, pmk_dev, consts)
+        ref = tfx.plain_part(kind, static, pmk_dev[:, :K3_WIDE_CHECK].contiguous(), consts)
+        sl = got[:, :, :K3_WIDE_CHECK]
+        err[kind] = int((sl.int() - ref.int()).abs().max())
+        check(torch.equal(sl, ref), f"phase 15b: K3 != plain on {kind} x{n}")
+        check({tuple(int(x) for x in ix) for ix in got.nonzero()} == want,
+              f"phase 15b: {kind} x{n} hits {got.nonzero().tolist()[:8]}")
+        ms = cuda_ms(lambda: kernel_match(kind, static, pmk_dev, consts), 5)
+        rec = k3_part_bound(kind, static, n, consts[0].shape[1], consts[1].shape[1],
+                            block0_runs(kind, consts), b, ms, rates, sass,
+                            f"phase 15b {kind} x{n}")
+        print(f"phase 15b {k3_bound_line(rec, b, part_label(kind, static, n))}; held to the "
+              f"plain version on {K3_WIDE_CHECK} columns, {len(want)} planted hits; against K1's "
+              f"{k1_ms:.3f} ms a batch (phase 4): {ms / k1_ms:.1%} [{card}]", flush=True)
+    return err
+
+
+def k3_rates(res):
+    """The card's rates behind K3's bounds, from the probe's result
+    ``res`` (phase 5): the issue rate (every SM issues 4 x 32
+    thread-instructions a clock at the maximum SM clock), the rate the
+    ``sha1_round`` probe sustained (the integer pipes), and shared
+    memory's 32 lanes a clock an SM."""
+    from dwpa_tpu_torch.ops import sm_probe
+
+    sms = res["sms"]
+    clock_hz = float(res["max_sm_clock"].split()[0]) * 1e6
+    return {"issue": sms * sm_probe.ISSUE_PER_SM_CLOCK * clock_hz,
+            "probe": res["mixes"]["sha1_round"]["thread_inst_per_s"],
+            "smem": sms * SMEM_LANES_PER_SM_CLOCK * clock_hz}
+
+
+def k3_part_bound(kind, static, n, v, rows, runs, b, ms, rates, sass, what):
+    """One verify part's bounds at ``b`` columns (one launch): the
+    instructions its function needs (``ops/opcount.py`` ``verify_census``:
+    its plain version's 32-bit ops fused into the card's 3-input
+    instructions, a PRF block 0 once per distinct block, AES-128 at the
+    T-table model) at the issue rate and at the probe's rate, the census's
+    AES table loads at shared memory's rate, and 32 PMK bytes in and N x V
+    result bytes out a column at the HBM rate; beside them what K3's own
+    SASS issues (each instruction once per trip of the loops around it,
+    N x B threads).  Fails if K3 took less than the census at the issue
+    rate, or if K3's own SASS issues fewer instructions a column than the
+    census counts: the census must stay a floor.  -> the part's record."""
     from dwpa_tpu_torch.ops.opcount import verify_census
     from dwpa_tpu_torch.ops.sass import dynamic_count
 
-    k3 = {e: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-              "sass_ms": 0.0, "parts": []} for e in K3_ENTRIES}
-    for kind, static, n, v, rows, ms, p_ms in parts:
-        census = verify_census(kind, static, n, v, rows, b)
-        inst = dynamic_count(sass, k3_function(kind, static), [] if kind == "pmkid" else [v, rows])
-        ops_ms = census["ops"] / issue_per_s * 1e3
-        sass_ms = inst * n * b / issue_per_s * 1e3
-        bytes_ms = b * (32 + n * v) / HBM_BYTES_PER_S * 1e3
-        bound = max(ops_ms, bytes_ms)
-        rec = k3[kind]
-        for key, x in (("ms", ms), ("plain_ms", p_ms), ("bound_ms", bound), ("ops_ms", ops_ms),
-                       ("bytes_ms", bytes_ms), ("sass_ms", sass_ms)):
-            rec[key] += x
-        rec["parts"].append({"part": f"{kind}{list(static)}", "nets": n, "variants": v,
-                             "blocks": rows, "census_per_column": census["per_column"],
-                             "census_by_class": census["by_class"], "thread_inst": inst,
-                             "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
-                             "sass_bound_ms": sass_ms})
-        print(f"K3 bound {kind}{list(static)}: {n} nets x {b} columns (V {v}, "
-              f"{'E' if kind == 'eapol' else 'F'} {rows}), the function {census['per_column']} "
-              f"instructions a column + {census['per_part']} a part {census['by_class']} at the "
-              f"issue rate {ops_ms:.3f} ms; bytes {bytes_ms:.4f} ms; K3 {ms:.3f} ms ({bound / ms:.1%}"
-              f" of its bound); K3's own SASS {inst} instructions a thread = {sass_ms:.3f} ms "
-              f"({sass_ms / ms:.1%} of K3's time); plain {p_ms:.3f} ms [{card}]", flush=True)
+    census = verify_census(kind, static, n, v, rows, b, runs)
+    inst = dynamic_count(sass, k3_function(kind, static), k3_trips(kind, n, v, rows, runs))
+    rec = {"part": f"{kind}{list(static)}", "nets": n, "variants": v, "blocks": rows,
+           "prf_block0_runs": runs, "census_per_column": census["per_column"],
+           "census_by_class": census["by_class"], "thread_inst": inst, "ms": ms,
+           "issue_bound_ms": census["ops"] / rates["issue"] * 1e3,
+           "probe_bound_ms": census["ops"] / rates["probe"] * 1e3,
+           "smem_bound_ms": census["by_class"].get("aes_loads", 0) * b / rates["smem"] * 1e3,
+           "bytes_bound_ms": b * (32 + n * v) / HBM_BYTES_PER_S * 1e3,
+           "sass_bound_ms": inst * n * b / rates["issue"] * 1e3}
+    rec["bound_ms"] = max(rec["issue_bound_ms"], rec["bytes_bound_ms"])
+    check(rec["issue_bound_ms"] <= ms,
+          f"{what}: K3 {ms:.3f} ms under its census bound {rec['issue_bound_ms']:.3f} ms")
+    check(inst * n >= census["per_column"],
+          f"{what}: K3's own SASS issues {inst * n:.0f} instructions a column, fewer than "
+          f"the census's {census['per_column']}")
+    return rec
+
+
+def k3_bound_line(rec, b, label):
+    """The printed form of a :func:`k3_part_bound` record."""
+    ms = rec["ms"]
+    smem = (f", its {rec['census_by_class']['aes_loads']} table loads a column at shared "
+            f"memory's rate {rec['smem_bound_ms']:.3f} ms ({rec['smem_bound_ms'] / ms:.1%})"
+            if rec["smem_bound_ms"] else "")
+    runs = "" if rec["prf_block0_runs"] is None else \
+        f", {rec['prf_block0_runs']} distinct PRF blocks 0"
+    return (f"K3 bound {label}: {rec['nets']} nets x {b} columns (V {rec['variants']}, "
+            f"{'E' if rec['part'].startswith('eapol') else 'F'} {rec['blocks']}{runs}), the "
+            f"function {rec['census_per_column']} instructions a column "
+            f"{rec['census_by_class']}: at the issue rate {rec['issue_bound_ms']:.3f} ms (K3 at "
+            f"{rec['issue_bound_ms'] / ms:.1%}), at the probe rate {rec['probe_bound_ms']:.3f} "
+            f"ms ({rec['probe_bound_ms'] / ms:.1%}){smem}; bytes {rec['bytes_bound_ms']:.4f} ms; "
+            f"K3 {ms:.3f} ms; K3's own SASS {rec['thread_inst']:.0f} instructions a thread = "
+            f"{rec['sass_bound_ms']:.3f} ms at the issue rate")
+
+
+def k3_bounds(parts, sass, b, rates, card):
+    """K3's bounds at phase 4's shapes, one per verify part (one launch
+    each; :func:`k3_part_bound`).  An entry's ms, plain ms and bounds are
+    the sums over its parts."""
+    keys = ("ms", "plain_ms", "bound_ms", "issue_bound_ms", "probe_bound_ms", "smem_bound_ms",
+            "bytes_bound_ms", "sass_bound_ms")
+    k3 = {e: dict.fromkeys(keys, 0.0) | {"parts": []} for e in K3_ENTRIES}
+    for kind, static, n, v, rows, runs, ms, p_ms in parts:
+        rec = k3_part_bound(kind, static, n, v, rows, runs, b, ms, rates, sass,
+                            f"phase 4 {kind}{list(static)}")
+        rec["plain_ms"] = p_ms
+        for key in keys:
+            k3[kind][key] += rec[key]
+        k3[kind]["parts"].append(rec)
+        print(f"{k3_bound_line(rec, b, f'{kind}{list(static)}')}; plain {p_ms:.3f} ms [{card}]",
+              flush=True)
     return k3
 
 
@@ -3453,9 +3626,10 @@ def main():
           f"{', '.join(f'{m} {n[0]} (+{n[1]} outside)' for m, n in steps.items())}", flush=True)
     print(f"phase 1 build: K1 loop opcodes {dict(k1_mix.most_common())}", flush=True)
     k3_sass = sass_text(k3_so)
+    one_trip = {part: [1] * len(k3_trips(part[0], 1, 1, 1, 1)) for part in K3_PARTS}
     print("phase 1 build: K3 SASS instructions a thread at one trip of each loop "
           + ", ".join(f"{k3_function(*part)} "
-                      f"{dynamic_count(k3_sass, k3_function(*part), [1] * (2 * bool(part[1])))}"
+                      f"{dynamic_count(k3_sass, k3_function(*part), one_trip[part])}"
                       for part in K3_PARTS), flush=True)
 
     rng = np.random.default_rng(SEED)
@@ -3524,7 +3698,8 @@ def main():
     ops_launches = phase_ops(dev, card, k3_paths)
     slice_launches = phase_slices(dev, rng, card, words, unit_founds, unit_pmk_s,
                                   rules_founds, rules_rate, k3_paths)
-    k3_err = phase_k3(dev, rng, card)
+    rates = k3_rates(res)
+    k3_err = phase_k3(dev, rng, card, k1_ms, rates, k3_sass)
 
     # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
     # a clock at the maximum SM clock.  Probe rate: the thread-instructions
@@ -3558,7 +3733,7 @@ def main():
           f"at the issue rate {b2048:.3f} ms, K1 at {b2048 / precrack_ms:.1%}: {PRECRACK_BATCH} "
           f"threads fill {PRECRACK_BATCH // 128} of the card's {sms} SMs) against {k1_ms:.3f} ms "
           f"per {b}-row batch (phase 4) [{card}]", flush=True)
-    k3 = k3_bounds(k3_parts, k3_sass, b, issue_per_s, card)
+    k3 = k3_bounds(k3_parts, k3_sass, b, rates, card)
     print(f"K3 per {b}-row batch (phase 4): {sum(r['ms'] for r in k3.values()):.3f} ms over its "
           f"parts, bound {sum(r['bound_ms'] for r in k3.values()):.3f} ms, the plain verify "
           f"{sum(r['plain_ms'] for r in k3.values()):.3f} ms; step.verify {verify_ms:.3f} ms "
@@ -3597,9 +3772,11 @@ def main():
         "name": f"verify_{e}", "route": "cuda", "source": VERIFY_SOURCE,
         "replaces": K3_ENTRIES[e], "launches": k3_launches[e], "max_abs_err": k3_err[e],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-        "bound_by": "operations" if rec["ops_ms"] >= rec["bytes_ms"] else "bytes",
-        "library_ms": None, "issue_bound_ms": rec["ops_ms"], "bytes_bound_ms": rec["bytes_ms"],
-        "sass_bound_ms": rec["sass_ms"], "parts": rec["parts"],
+        "bound_by": "operations" if rec["issue_bound_ms"] >= rec["bytes_bound_ms"] else "bytes",
+        "library_ms": None, "issue_bound_ms": rec["issue_bound_ms"],
+        "probe_bound_ms": rec["probe_bound_ms"], "smem_bound_ms": rec["smem_bound_ms"],
+        "bytes_bound_ms": rec["bytes_bound_ms"], "sass_bound_ms": rec["sass_bound_ms"],
+        "parts": rec["parts"],
         "launches_by_path": {path: c.get(e, 0) for path, c in k3_paths.items()},
     } for e, rec in k3.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

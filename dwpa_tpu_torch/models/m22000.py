@@ -45,6 +45,7 @@ Layout of the device work:
   order.
 """
 
+import functools
 import struct
 import time
 from dataclasses import dataclass
@@ -55,6 +56,7 @@ import torch
 from ..gen.mask import device_mask_words, mask_blocks, mask_words
 from ..native import pack_candidates_fast
 from ..ops import verify as vf
+from ..ops import verify_prep
 from ..ops.common import to_numpy, to_torch
 from ..ops.pbkdf2 import pbkdf2_sha1_pmk
 from ..ops.pbkdf2_cuda import pbkdf2_sha1_pmk_cuda
@@ -286,38 +288,57 @@ def _pmkid_impl(pmk, msg_block, target):
     return _on_device("verify", pmkid_match_cuda, vf.pmkid_plain, pmk, msg_block, target)
 
 
-def eapol_match(pmk, prf_blocks, eapol_blocks, target, *, keyver):
+def eapol_match(pmk, prf_blocks, eapol_blocks, target, *prep, keyver):
     """MIC match for keyver 1/2 over all NC variants, routed like
     :func:`_pmkid_impl`.
 
     ``pmk``: int32[8, B]; ``prf_blocks``: [N, V, 2, 16];
-    ``eapol_blocks``: [N, E, 16]; ``target``: [N, 4].
+    ``eapol_blocks``: [N, E, 16]; ``target``: [N, 4]; ``prep``: K3's
+    derived constants of these nets (``ops/verify_prep.derive``, which a
+    crack step builds once), which the kernel requires and the plain
+    version does not read.
     Returns bool[N, V, B].
     """
-    return _on_device("verify", eapol_match_cuda, vf.eapol_match_plain, pmk, prf_blocks,
-                      eapol_blocks, target, keyver=keyver)
+    return _on_device("verify", functools.partial(eapol_match_cuda, prep=prep),
+                      vf.eapol_match_plain, pmk, prf_blocks, eapol_blocks, target,
+                      keyver=keyver)
 
 
-def eapol_cmac_match(pmk, prf_blocks, cmac_full, cmac_last, target, *, last_complete):
+def eapol_cmac_match(pmk, prf_blocks, cmac_full, cmac_last, target, *prep, last_complete):
     """AES-128-CMAC MIC match (keyver 3, WPA2 802.11w), routed like
     :func:`_pmkid_impl`.
 
     ``prf_blocks``: [N, V, 2, 16]; ``cmac_full``: [N, F, 16];
-    ``cmac_last``/``target``: [N, 16] byte values.  -> bool[N, V, B].
+    ``cmac_last``/``target``: [N, 16] byte values; ``prep`` as in
+    :func:`eapol_match`.  -> bool[N, V, B].
     """
-    return _on_device("verify", cmac_match_cuda, vf.eapol_cmac_match_plain, pmk, prf_blocks,
-                      cmac_full, cmac_last, target, last_complete=last_complete)
+    return _on_device("verify", functools.partial(cmac_match_cuda, prep=prep),
+                      vf.eapol_cmac_match_plain, pmk, prf_blocks, cmac_full, cmac_last, target,
+                      last_complete=last_complete)
 
 
 def net_match(pmk, net: PreppedNet):
-    """Verify one prepped net -> bool[V, B]."""
+    """Verify one prepped net -> bool[V, B].  On the card it derives the
+    net's K3 constants (``ops/verify_prep.derive``) on every call: a
+    check of one net, not a crack path."""
     if net.keyver == 100:
         return _pmkid_impl(pmk, net.pmkid_block, net.target)[None, :]
     if net.keyver == 3:
-        return eapol_cmac_match(pmk, net.prf_blocks, net.cmac_full, net.cmac_last,
-                                net.cmac_target, last_complete=net.cmac_last_complete)
-    return eapol_match(pmk, net.prf_blocks, net.eapol_blocks, net.target,
+        consts = (net.prf_blocks, net.cmac_full, net.cmac_last, net.cmac_target)
+        static = (bool(net.cmac_last_complete),)
+        return eapol_cmac_match(pmk, *consts, *_net_prep(pmk, "cmac", static, consts),
+                                last_complete=static[0])
+    consts = (net.prf_blocks, net.eapol_blocks, net.target)
+    return eapol_match(pmk, *consts, *_net_prep(pmk, "eapol", (net.keyver,), consts),
                        keyver=net.keyver)
+
+
+def _net_prep(pmk, kind, static, consts):
+    """One net's K3 constants with a net axis of 1, for the kernel; none
+    for the plain version."""
+    if not pmk.is_cuda:
+        return ()
+    return verify_prep.derive(kind, static, tuple(c[None] for c in consts))
 
 
 # ---------------------------------------------------------------------------

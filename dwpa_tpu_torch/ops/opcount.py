@@ -23,6 +23,7 @@ Run: ``python -m dwpa_tpu_torch.ops.opcount`` (one JSON line; no device
 needed).
 """
 
+import functools
 from collections import Counter
 from unittest import mock
 
@@ -132,7 +133,10 @@ class _Graph(TorchFunctionMode):
     :func:`_instructions`.  A logical right shift (``shr32``: a shift and
     its sign mask) is one ``shift`` node, a rotate (``common.rotl32``,
     ``rotr32``: the ``or`` of a word shifted left and the same word
-    shifted right) one ``rotate`` node, the card's funnel shift."""
+    shifted right) one ``rotate`` node, the card's funnel shift.  Tensors
+    marked by :meth:`constant` (a net's constants), and every result of
+    a call whose tensor operands are all constant, are constants: the
+    same for every column."""
 
     def __init__(self):
         super().__init__()
@@ -140,10 +144,20 @@ class _Graph(TorchFunctionMode):
         self.node_of = {}  # id(output) -> node index
         self.uses = Counter()  # id(tensor) -> calls that read it
         self.model = Counter()  # work counted by a model, not by nodes
+        self.consts = {}  # id(tensor) -> the constant tensor
+        self._read = []  # every tensor read, kept alive so ids stay unique
+
+    def constant(self, *tensors):
+        for t in tensors:
+            self.consts[id(t)] = t
+
+    def is_constant(self, x):
+        return isinstance(x, int) or self.consts.get(id(x)) is x
 
     def _use(self, a):
         if isinstance(a, torch.Tensor):
             self.uses[id(a)] += 1
+            self._read.append(a)
         elif isinstance(a, (list, tuple)):
             for x in a:
                 self._use(x)
@@ -156,6 +170,10 @@ class _Graph(TorchFunctionMode):
         out = func(*args, **(kwargs or {}))
         self._use(args)
         self._use(list((kwargs or {}).values()))
+        ins = [x for x in _flat(list(args) + list((kwargs or {}).values()))
+               if isinstance(x, torch.Tensor)]
+        if ins and all(self.is_constant(x) for x in ins):
+            self.constant(*(x for x in _flat([out]) if isinstance(x, torch.Tensor)))
         prim = _PRIMS.get(func) or _VERIFY_PRIMS.get(func)
         if prim is None or not isinstance(out, torch.Tensor):
             return out
@@ -174,6 +192,14 @@ class _Graph(TorchFunctionMode):
         return out
 
 
+def _flat(xs):
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            yield from _flat(x)
+        else:
+            yield x
+
+
 # The classes of op the card issues as one instruction each: a logic op
 # of up to 3 inputs (LOP3), an add of up to 3 (IADD3), a shift, a rotate
 # (a funnel shift), a comparison.  ``shl`` and ``shr`` are shifts until
@@ -183,26 +209,44 @@ _CLASS = {"and": "logic", "or": "logic", "xor": "logic", "not": "logic", "add": 
 # Beside ``_PRIMS``: a tensor sum reaches the mode as ``Tensor.add``.
 _VERIFY_PRIMS = {torch.Tensor.add: "add", torch.Tensor.__eq__: "eq",
                  torch.Tensor.__invert__: "not"}
-_FUSED = ("logic", "add")
+# A rotate or a logical shift that one add reads folds into it (LEA.HI
+# or LEA: a funnel shift of one word plus a second word).
+_SHIFTS = ("rotate", "shift", "shl")
+
+
+def _own(graph, x, cls):
+    """The index of the node of class ``cls`` that made ``x`` and that
+    nothing else reads, or None."""
+    j = graph.node_of.get(id(x)) if isinstance(x, torch.Tensor) else None
+    ok = j is not None and graph.nodes[j][0] == cls and graph.nodes[j][3] is x
+    return j if ok and graph.uses[id(x)] == 1 else None
 
 
 def _instructions(graph):
-    """Instructions by class, each node weighed by its elements: a logic
-    or add node absorbs an operand node of its own class that nothing
-    else reads while the fused op keeps at most 3 inputs (each immediate
-    one input).  -> Counter."""
-    leaves, out = {}, Counter()
-    for i, (cls, ops, n, _) in enumerate(graph.nodes):
-        if cls is None:
+    """Instructions by class, each node weighed by its elements.  A logic
+    node absorbs an operand logic node that nothing else reads while the
+    fused op keeps at most 3 inputs (each immediate one input).  An add
+    node absorbs every operand add node that nothing else reads: a sum of
+    ``k`` terms, the constants among them one term (their sum is the
+    net's, or an immediate), is ``ceil((k - 1) / 2)`` 3-input adds; a
+    term that a rotate or shift only this sum reads makes, with one other
+    term, one instruction (LEA.HI), and the rotate goes.  -> Counter."""
+    leaves, terms = {}, {}
+    nodes = graph.nodes
+    for i, (cls, ops, n, _) in enumerate(nodes):
+        if cls == "add":
+            terms[i] = []
+            for x in ops:
+                j = _own(graph, x, "add")
+                if j is None:
+                    terms[i].append(x)
+                else:
+                    nodes[j][0] = None
+                    terms[i].extend(terms.pop(j))
             continue
-        if cls not in _FUSED:
-            out["shift" if cls in ("shl", "shr") else cls] += n
+        if cls != "logic":
             continue
-        own = []
-        for x in ops:
-            j = graph.node_of.get(id(x)) if isinstance(x, torch.Tensor) else None
-            own.append(j if j is not None and graph.nodes[j][0] == cls
-                       and graph.nodes[j][3] is x and graph.uses[id(x)] == 1 else None)
+        own = [_own(graph, x, cls) for x in ops]
         best = None
         for mask in range(1 << len(ops)):
             if any(mask >> k & 1 and own[k] is None for k in range(len(ops))):
@@ -216,9 +260,23 @@ def _instructions(graph):
         _, mask, leaves[i] = best
         for k in range(len(ops)):
             if mask >> k & 1:
-                graph.nodes[own[k]][0] = None
-                out[cls] -= graph.nodes[own[k]][2]
-        out[cls] += n
+                nodes[own[k]][0] = None
+    adds = Counter()
+    for i, ts in terms.items():
+        if nodes[i][0] is None:
+            continue
+        var = sum(not graph.is_constant(x) for x in ts)
+        k = var + (len(ts) > var) if var else len(ts)  # a net's own sum: its terms
+        folds = [j for j in (_own(graph, x, c) for x in ts if not graph.is_constant(x)
+                             for c in _SHIFTS)
+                 if j is not None and nodes[j][3].shape == nodes[i][3].shape][:max(k - 1, 0)]
+        for j in folds:
+            nodes[j][0] = None
+        adds[i] = len(folds) + -(-(k - 1 - len(folds)) // 2)
+    out = Counter()
+    for i, (cls, _, n, _) in enumerate(nodes):
+        if cls is not None:
+            out["shift" if cls in ("shl", "shr") else cls] += n * adds.get(i, 1)
     return out
 
 
@@ -261,12 +319,42 @@ def _operands(kind, n, v, rows, b):
     return pmk, (z(n, v, 2, 16), z(n, rows, 16), z(n, 16), z(n, 16))
 
 
-def _verify_counts(kind, static, n, v, rows, b):
+@functools.lru_cache(maxsize=None)
+def _block0_per_row(kind):
+    """Per column, the instructions of one PRF block-0 compression that
+    grow with its rows (the variants it is repeated for): the bilinear
+    term of the compression's census at 1 and 2 columns and 1 and 2 rows
+    of constant words, as the plain version computes it.  The rest
+    (rounds that read only the column's pad state) is shared already.
+    -> {class: instructions}."""
+    from .sha1 import sha1_compress
+    from .sha256 import sha256_compress
+
+    compress, width = (sha256_compress, 8) if kind == "cmac" else (sha1_compress, 5)
+
+    def count(c, r):
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int32)
+
+        state, block = [z(c) for _ in range(width)], [z(r, 1) for _ in range(16)]
+        with _Graph() as graph:
+            graph.constant(*block)
+            compress(state, block)
+        return _instructions(graph)
+
+    cs = {(c, r): count(c, r) for c in (1, 2) for r in (1, 2)}
+    classes = set().union(*cs.values())
+    out = {k: cs[2, 2][k] - cs[1, 2][k] - cs[2, 1][k] + cs[1, 1][k] for k in classes}
+    return {k: x for k, x in out.items() if x}
+
+
+def _verify_counts(kind, static, n, v, rows, b, block0=None):
     from . import verify as vf
 
     pmk, consts = _operands(kind, n, v, rows, b)
     calls = vf.CALLS
     with _Graph() as graph:
+        graph.constant(*consts)
         if kind == "pmkid":
             vf.pmkid_plain(pmk, *consts)
         elif kind == "eapol":
@@ -280,21 +368,33 @@ def _verify_counts(kind, static, n, v, rows, b):
             with mock.patch.object(vf, "aes128_cmac", aes_cmac):
                 vf.eapol_cmac_match_plain(pmk, *consts, last_complete=static[0])
     vf.CALLS = calls  # a census, not a verify
-    return _instructions(graph) + graph.model
+    counts = _instructions(graph) + graph.model
+    if kind != "pmkid":
+        # The plain version compresses PRF block 0 once per variant; the
+        # function needs it once per distinct block.
+        distinct = n if kind == "cmac" else (n * v if block0 is None else block0)
+        for k, x in _block0_per_row(kind).items():
+            counts[k] -= (n * v - distinct) * b * x
+    return counts
 
 
-def verify_census(kind, static, n, v, rows, b):
+def verify_census(kind, static, n, v, rows, b, block0=None):
     """The instructions one verify part needs (``kind`` and ``static`` as
     in ``parallel/step._KINDS``; ``n`` nets, ``v`` variants, ``rows``
     EAPOL or full CMAC blocks) on ``b`` PMK columns, from its plain
     version in ``ops/verify.py`` run on 1 and 2 columns: every element of
     every 32-bit op, fused into the card's 3-input logic and add
     instructions where the dataflow allows, a rotate or a logical shift
-    one instruction, work on a net's constants counted once, and
-    AES-128-CMAC at the T-table model above.  It grows as ``per_column *
-    b + per_part``.
+    one instruction or, where one sum alone reads it, none (LEA.HI), the
+    net's constants among a sum's terms one term (the kernels read them
+    summed), work on a net's constants counted once, a PRF block
+    0 that variants share once per distinct block, and AES-128-CMAC at
+    the T-table model above.  ``block0``: the part's distinct PRF blocks
+    0, summed over its nets (keyver 1/2; None counts every variant's
+    own); keyver 3's variants share one a net.  It grows as
+    ``per_column * b + per_part``.
     -> {"ops", "per_column", "per_part", "by_class"}."""
-    one, two = (_verify_counts(kind, static, n, v, rows, c) for c in (1, 2))
+    one, two = (_verify_counts(kind, static, n, v, rows, c, block0) for c in (1, 2))
     by_class = {c: two[c] - one[c] for c in sorted(two) if two[c] - one[c]}
     per_col = sum(by_class.values())
     per_part = sum(one.values()) - per_col

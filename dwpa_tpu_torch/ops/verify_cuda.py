@@ -13,7 +13,11 @@ The plain versions are ``ops/verify.py``; ``models/m22000`` routes a CPU
 ``pmk`` to them and a CUDA one here.  Each wrapper takes its constants
 with one leading net axis ``N`` (or none, for a single net: the wrapper
 adds and removes a net axis of 1), launches on the current stream and
-does not synchronise.
+does not synchronise.  The keyver 1/2 and keyver 3 kernels read the
+part's derived constants (``ops/verify_prep.py``) in place of the
+constants they are built from: the caller builds them once (a crack step
+when it is built) and passes them as ``prep``, which those two wrappers
+require.
 """
 
 import collections
@@ -41,10 +45,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # pmk, B, msg, target, N, out, stream
     "verify_pmkid_launch": [_P, _I, _P, _P, _I, _P, _P],
-    # pmk, B, prf, V, eapol, E, target, N, keyver, out, stream
-    "verify_eapol_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P],
-    # pmk, B, prf, V, full, F, last, last_complete, target, N, out, stream
-    "verify_cmac_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P],
+    # pmk, B, V, order, prf_sched, E, eapol_sched, target, N, keyver, out, stream
+    "verify_eapol_launch": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P],
+    # pmk, B, V, prf_sched, F, cmac_words, last_complete, N, out, stream
+    "verify_cmac_launch": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P],
 }
 
 
@@ -61,9 +65,11 @@ def _library():
         return _lib
 
 
-def _check_operands(pmk, *named):
+def _check_operands(pmk, *named, aligned=False):
     """``pmk`` int32[8, B]; each ``(name, tensor, shape)`` an int32 tensor
-    of exactly ``shape`` on ``pmk``'s device; every operand contiguous."""
+    of exactly ``shape`` on ``pmk``'s device; every operand contiguous,
+    and with ``aligned`` at a 16-byte boundary (the kernels read derived
+    schedules and words 16 bytes at a time)."""
     if pmk.dtype != torch.int32 or pmk.dim() != 2 or pmk.shape[0] != 8:
         raise ValueError(f"pmk must be int32[8, B], got {pmk.dtype}{list(pmk.shape)}")
     if not pmk.is_contiguous():
@@ -76,6 +82,8 @@ def _check_operands(pmk, *named):
             raise ValueError(f"{name} must be {list(shape)}, got {list(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte boundary")
 
 
 def _nets(t, tail):
@@ -101,36 +109,59 @@ def check_pmkid(pmk, msg_block, target):
     return n
 
 
-def check_eapol(pmk, prf_blocks, eapol_blocks, target, keyver):
+def _prep_arity(prep, names):
+    if len(prep) != len(names):
+        raise ValueError(f"expected derived constants ({', '.join(names)}), got {len(prep)}")
+    return prep
+
+
+def check_eapol(pmk, prf_blocks, eapol_blocks, target, keyver, prep=None):
     """Validate K3.eapol's operands: ``prf_blocks`` int32[N, V, 2, 16],
     ``eapol_blocks`` int32[N, E, 16], ``target`` int32[N, 4], keyver 1
-    or 2.  -> (N, V, E)."""
+    or 2; and ``prep``, if given, the derived ``(order int32[N, V],
+    prf_sched int32[N, V, 2, 80], eapol_sched int32[N, E, 80]`` for
+    keyver 2, ``[N, E, 64]`` for keyver 1``)``.  -> (N, V, E)."""
     if keyver not in (1, 2):
         raise ValueError(f"keyver must be 1 or 2, got {keyver}")
     n = _nets(prf_blocks, 3)
     v, e = prf_blocks.shape[1], _block_rows(eapol_blocks)
     _check_operands(pmk, ("prf_blocks", prf_blocks, (n, v, 2, 16)),
                     ("eapol_blocks", eapol_blocks, (n, e, 16)), ("target", target, (n, 4)))
+    if prep is not None:
+        order, prf_sched, eapol_sched = _prep_arity(prep, ("order", "prf_sched", "eapol_sched"))
+        _check_operands(pmk, ("order", order, (n, v)), ("prf_sched", prf_sched, (n, v, 2, 80)),
+                        ("eapol_sched", eapol_sched, (n, e, 64 if keyver == 1 else 80)),
+                        aligned=True)
     return n, v, e
 
 
-def check_cmac(pmk, prf_blocks, cmac_full, cmac_last, target):
+def check_cmac(pmk, prf_blocks, cmac_full, cmac_last, target, prep=None):
     """Validate K3.cmac's operands: ``prf_blocks`` int32[N, V, 2, 16],
     ``cmac_full`` int32[N, F, 16] (F may be 0), ``cmac_last`` and
-    ``target`` int32[N, 16] byte values.  -> (N, V, F)."""
+    ``target`` int32[N, 16] byte values; and ``prep``, if given, the
+    derived ``(prf_sched int32[N, 1 + V, 64], cmac_words int32[N, F + 2,
+    4])``.  -> (N, V, F)."""
     n = _nets(prf_blocks, 3)
     v, f = prf_blocks.shape[1], _block_rows(cmac_full)
     _check_operands(pmk, ("prf_blocks", prf_blocks, (n, v, 2, 16)),
                     ("cmac_full", cmac_full, (n, f, 16)), ("cmac_last", cmac_last, (n, 16)),
                     ("target", target, (n, 16)))
+    if prep is not None:
+        prf_sched, words = _prep_arity(prep, ("prf_sched", "cmac_words"))
+        _check_operands(pmk, ("prf_sched", prf_sched, (n, 1 + v, 64)),
+                        ("cmac_words", words, (n, f + 2, 4)), aligned=True)
     return n, v, f
+
+
+def _need_card(entry, pmk):
+    if not pmk.is_cuda:
+        raise ValueError(f"K3.{entry} needs CUDA tensors")
 
 
 def _launch(entry, name, pmk, out, *args):
     """Run launch function ``name`` on ``pmk``'s device and current
     stream with ``args`` (pointers as ints) and count it under ``entry``."""
-    if not pmk.is_cuda:
-        raise ValueError(f"K3.{entry} needs CUDA tensors")
+    _need_card(entry, pmk)
     fn = getattr(_library(), name)
     with torch.cuda.device(pmk.device):
         stream = torch.cuda.current_stream(pmk.device).cuda_stream
@@ -156,33 +187,40 @@ def pmkid_match_cuda(pmk, msg_block, target):
                    msg_block.data_ptr(), target.data_ptr(), n, out.data_ptr())
 
 
-def eapol_match_cuda(pmk, prf_blocks, eapol_blocks, target, keyver):
+def eapol_match_cuda(pmk, prf_blocks, eapol_blocks, target, keyver, prep=()):
     """Keyver 1/2 MIC match over every variant on the GPU -> bool[N, V, B]
     (bool[V, B] for a single net's constants); bit-identical to
-    ``ops/verify.eapol_match_plain``."""
+    ``ops/verify.eapol_match_plain``.  ``prep``: the part's derived
+    constants (``verify_prep.derive``, with their net axis); a call
+    without them raises."""
+    _need_card("eapol", pmk)
     if prf_blocks.dim() == 3:
         return eapol_match_cuda(pmk, prf_blocks[None], eapol_blocks[None], target[None],
-                                keyver)[0]
-    n, v, e = check_eapol(pmk, prf_blocks, eapol_blocks, target, keyver)
+                                keyver, prep)[0]
+    prep = tuple(prep)
+    n, v, e = check_eapol(pmk, prf_blocks, eapol_blocks, target, keyver, prep)
+    order, prf_sched, eapol_sched = prep
     b = pmk.shape[1]
     out = torch.empty((n, v, b), dtype=torch.bool, device=pmk.device)
-    return _launch("eapol", "verify_eapol_launch", pmk, out, pmk.data_ptr(), b,
-                   prf_blocks.data_ptr(), v, eapol_blocks.data_ptr(), e, target.data_ptr(),
-                   n, keyver, out.data_ptr())
+    return _launch("eapol", "verify_eapol_launch", pmk, out, pmk.data_ptr(), b, v,
+                   order.data_ptr(), prf_sched.data_ptr(), e, eapol_sched.data_ptr() if e else None,
+                   target.data_ptr(), n, keyver, out.data_ptr())
 
 
-def cmac_match_cuda(pmk, prf_blocks, cmac_full, cmac_last, target, last_complete):
+def cmac_match_cuda(pmk, prf_blocks, cmac_full, cmac_last, target, last_complete, prep=()):
     """Keyver 3 AES-128-CMAC match over every variant on the GPU ->
     bool[N, V, B] (bool[V, B] for a single net's constants); bit-identical
-    to ``ops/verify.eapol_cmac_match_plain``.  An empty ``cmac_full``
-    (F = 0) is never read."""
+    to ``ops/verify.eapol_cmac_match_plain``.  ``prep`` as in
+    :func:`eapol_match_cuda`."""
+    _need_card("cmac", pmk)
     if prf_blocks.dim() == 3:
         return cmac_match_cuda(pmk, prf_blocks[None], cmac_full[None], cmac_last[None],
-                               target[None], last_complete)[0]
-    n, v, f = check_cmac(pmk, prf_blocks, cmac_full, cmac_last, target)
+                               target[None], last_complete, prep)[0]
+    prep = tuple(prep)
+    n, v, f = check_cmac(pmk, prf_blocks, cmac_full, cmac_last, target, prep)
+    prf_sched, words = prep
     b = pmk.shape[1]
     out = torch.empty((n, v, b), dtype=torch.bool, device=pmk.device)
-    return _launch("cmac", "verify_cmac_launch", pmk, out, pmk.data_ptr(), b,
-                   prf_blocks.data_ptr(), v, cmac_full.data_ptr() if f else None, f,
-                   cmac_last.data_ptr(), int(bool(last_complete)), target.data_ptr(), n,
+    return _launch("cmac", "verify_cmac_launch", pmk, out, pmk.data_ptr(), b, v,
+                   prf_sched.data_ptr(), f, words.data_ptr(), int(bool(last_complete)), n,
                    out.data_ptr())

@@ -7,7 +7,9 @@ only per-batch sync before it fetches the (rare) positives.
 
 Nets are grouped by verify signature (kind, static parameters, constant
 shapes).  Each group's constants are stacked along a leading net axis,
-padded to a power-of-two bucket, and verified as one ``[N, V, B]`` batch
+padded to a power-of-two bucket (for the card, K3's derived constants
+are built from them then, once: ``ops/verify_prep.py``), and verified as
+one ``[N, V, B]`` batch
 — one launch of the K3 verify kernel for a CUDA PMK matrix, its plain
 torch version for a CPU one (``models/m22000``); nets and
 nonce-correction variants are tensor dimensions, never Python loops.
@@ -21,6 +23,7 @@ import torch
 
 from ..models import m22000 as m
 from ..ops.common import to_torch
+from ..ops.verify_prep import derive
 
 
 def pmk_step(pw_words, salt1, salt2):
@@ -60,7 +63,9 @@ def _gate(found, mask):
 # PreppedNet fields stacked for the device, and (c) the batched match
 # function.  _partition, build_crack_step and verify_step all read this
 # table.  Each match fn: (pmk[8, B], static tuple, *stacked consts with a
-# leading net axis N) -> bool[N, V, B].
+# leading net axis N, *K3's derived constants) -> bool[N, V, B]; the
+# derived constants (ops/verify_prep.derive) follow the fields in a CUDA
+# part, built once per part by _part_consts.
 _KINDS = {
     "pmkid": (
         lambda net: (),
@@ -70,13 +75,14 @@ _KINDS = {
     "eapol": (
         lambda net: (net.keyver,),
         ("prf_blocks", "eapol_blocks", "target"),
-        lambda pmk, st, prf, eap, tgt: m.eapol_match(pmk, prf, eap, tgt, keyver=st[0]),
+        lambda pmk, st, prf, eap, tgt, *prep: m.eapol_match(pmk, prf, eap, tgt, *prep,
+                                                            keyver=st[0]),
     ),
     "cmac": (
         lambda net: (bool(net.cmac_last_complete),),
         ("prf_blocks", "cmac_full", "cmac_last", "cmac_target"),
-        lambda pmk, st, prf, full, last, tgt: m.eapol_cmac_match(
-            pmk, prf, full, last, tgt, last_complete=st[0]
+        lambda pmk, st, prf, full, last, tgt, *prep: m.eapol_cmac_match(
+            pmk, prf, full, last, tgt, *prep, last_complete=st[0]
         ),
     ),
 }
@@ -116,6 +122,20 @@ def _pad_nets(arrs):
     if pad:
         stacked = torch.cat([stacked, stacked[-1:].expand(pad, *stacked.shape[1:])])
     return stacked
+
+
+def _kernel_reads(consts):
+    """Whether K3 verifies these constants (a CUDA part) and so reads its
+    derived constants; the plain versions never do."""
+    return consts[0].is_cuda
+
+
+def _part_consts(kind, static, group):
+    """One verify part's constants: the ``_KINDS`` fields of the nets in
+    ``group`` stacked and bucket-padded, then, for the card, K3's derived
+    constants built from them, once (``ops/verify_prep.derive``)."""
+    consts = tuple(_pad_nets([getattr(g, f) for g in group]) for f in _KINDS[kind][1])
+    return consts + derive(kind, static, consts) if _kernel_reads(consts) else consts
 
 
 def _partition(nets):
@@ -233,12 +253,10 @@ def build_rules_step(nets, salt1, salt2, device):
     parts = []
     for sig, idxs in _partition(nets).items():
         kind, static = sig[0], sig[1]
-        _, fields, match = _KINDS[kind]
         group = [nets[i] for i in idxs]
         mask = torch.zeros(_bucket(len(group)), dtype=torch.bool, device=device)
         mask[: len(group)] = True
-        consts = tuple(_pad_nets([getattr(g, f) for g in group]) for f in fields)
-        parts.append((match, static, mask, consts))
+        parts.append((_KINDS[kind][2], static, mask, _part_consts(kind, static, group)))
     s1, s2 = to_torch(salt1, device), to_torch(salt2, device)
 
     def step(base, lens, steps):
@@ -275,13 +293,10 @@ def build_crack_step(nets, salt1, salt2, device):
     struct = []  # (real net count, variant count) per part
     for sig, idxs in _partition(nets).items():
         kind, static = sig[0], sig[1]
-        _, fields, _ = _KINDS[kind]
         group = [nets[i] for i in idxs]
         mask = torch.zeros(_bucket(len(group)), dtype=torch.bool, device=device)
         mask[: len(group)] = True
-        consts = (mask,) + tuple(
-            _pad_nets([getattr(g, f) for g in group]) for f in fields
-        )
+        consts = (mask,) + _part_consts(kind, static, group)
         parts.append((verify_step(kind, static), consts))
         v = 1 if kind == "pmkid" else len(group[0].variants)
         struct.append((len(group), v))

@@ -118,37 +118,78 @@ def make_eapol_line(
 # Planted nets for the crack step's verify (K3 and its plain version)
 # ---------------------------------------------------------------------------
 
-#: Verify test cases: (keyver, EAPOL key data) of three nets each, with
-#: the exact nonce, an LE and a BE nonce correction (``VERIFY_NC``).
-#: Keyver 100 is PMKID; 29 key-data bytes make keyver 3's EAPOL frame a
-#: multiple of 16 bytes, so its last CMAC block is complete.
-VERIFY_CASES = {"pmkid": (100, None), "kv1": (1, None), "kv2": (2, None),
-                "kv3": (3, None), "kv3_complete": (3, b"\x30" * 29)}
+#: Verify test cases: (keyver, EAPOL key data, AP nonce offset) of three
+#: nets each, with the exact nonce, an LE and a BE nonce correction
+#: (``VERIFY_NC``).  Keyver 100 is PMKID.  29 key-data bytes make keyver
+#: 3's EAPOL frame a multiple of 16 bytes, so its last CMAC block is
+#: complete (F = 7); 157 make 16 blocks, complete (F = 15), and 160 make
+#: 17, the last padded (F = 16).  The offset, 0 or 32, is where the AP
+#: nonce sits in the PRF's nonce pair: at 0 an LE correction changes keyver
+#: 1/2's PRF block 0.  None takes whichever the seed gives.
+VERIFY_CASES = {"pmkid": (100, None, None), "kv1": (1, None, None), "kv2": (2, None, None),
+                "kv3": (3, None, None), "kv3_complete": (3, b"\x30" * 29, None),
+                "kv1_ap0": (1, None, 0), "kv1_ap32": (1, None, 32),
+                "kv2_ap0": (2, None, 0), "kv2_ap32": (2, None, 32),
+                "kv3_ap0": (3, None, 0), "kv3_ap32": (3, None, 32),
+                "kv3_f15": (3, b"\x41" * 157, 32), "kv3_f16": (3, b"\x42" * 160, 0)}
 VERIFY_NC = [(0, ""), (2, "LE"), (-3, "BE")]
 
 
 def verify_case_specs(case):
-    """The three net specs ``(keyver, nc_delta, endian, key_data)`` of a
-    :data:`VERIFY_CASES` case."""
-    keyver, key_data = VERIFY_CASES[case]
-    return [(keyver, nc, endian, key_data) for nc, endian in VERIFY_NC]
+    """The three net specs ``(keyver, nc_delta, endian, key_data,
+    ap_off)`` of a :data:`VERIFY_CASES` case."""
+    keyver, key_data, ap_off = VERIFY_CASES[case]
+    return [(keyver, nc, endian, key_data, ap_off) for nc, endian in VERIFY_NC]
 
 
 def verify_lines(specs, essid, tag):
-    """One hashline per spec ``(keyver, nc_delta, endian, key_data)``,
-    each with its own PSK ``<tag>-<i>``: a PMKID line for keyver 100, else
-    an EAPOL line whose MIC needs the nonce correction ``nc_delta`` (0:
-    the exact nonce).  -> [(line, psk)]."""
+    """One hashline per spec ``(keyver, nc_delta, endian, key_data[,
+    ap_off])``, each with its own PSK ``<tag>-<i>``: a PMKID line for
+    keyver 100, else an EAPOL line whose MIC needs the nonce correction
+    ``nc_delta`` (0: the exact nonce) and, if ``ap_off`` is given, whose
+    AP nonce sits at that offset of the PRF's nonce pair (the first seed
+    ``<tag>-<i>``, ``<tag>-<i>.1``, ... that puts it there).  ->
+    [(line, psk)]."""
     out = []
-    for i, (keyver, nc, endian, key_data) in enumerate(specs):
-        psk, seed = b"%s-%02d" % (tag.encode(), i), f"{tag}-{i}"
+    for i, (keyver, nc, endian, key_data, *rest) in enumerate(specs):
+        ap_off = rest[0] if rest else None
+        psk = b"%s-%02d" % (tag.encode(), i)
         if keyver == 100:
-            line = make_pmkid_line(psk, essid, seed=seed)
-        else:
-            kw = dict(nc_delta=nc, endian=endian) if nc else {}
+            out.append((make_pmkid_line(psk, essid, seed=f"{tag}-{i}"), psk))
+            continue
+        kw = dict(nc_delta=nc, endian=endian) if nc else {}
+        for k in range(64):
+            seed = f"{tag}-{i}" + (f".{k}" if k else "")
             line = make_eapol_line(psk, essid, keyver=keyver, seed=seed, key_data=key_data, **kw)
+            if ap_off is None or oracle.nonce_pairs(hl.parse(line))[2] == ap_off:
+                break
+        else:
+            raise ValueError(f"no seed of {tag}-{i} puts the AP nonce at {ap_off}")
         out.append((line, psk))
     return out
+
+
+def short_cmac_net(net, psk, essid, msg):
+    """Keyver 3 net ``net`` (PSK ``psk``) with its MIC taken over ``msg``
+    (at most 16 bytes) in place of its EAPOL frame, under the exact
+    nonce: a CMAC with no full block (F = 0), its last block complete
+    when ``msg`` has 16 bytes.  ``prep_net`` never makes one (an EAPOL
+    frame is longer than 16 bytes)."""
+    import dataclasses
+
+    mac_m, mac_n, _ = oracle.nonce_pairs(net.line)
+    complete = len(msg) == 16
+    last = msg if complete else msg + b"\x80" + b"\x00" * (15 - len(msg))
+    mic = oracle.compute_mic(hashlib.pbkdf2_hmac("sha1", psk, essid, 4096, 32), 3,
+                             mac_m, mac_n, msg)
+    dev = net.prf_blocks.device
+
+    def byte_values(data):
+        return torch.tensor(list(data), dtype=torch.int32, device=dev)
+
+    return dataclasses.replace(
+        net, cmac_full=torch.zeros((0, 16), dtype=torch.int32, device=dev),
+        cmac_last=byte_values(last), cmac_last_complete=complete, cmac_target=byte_values(mic))
 
 
 def plant_pmks(pmk, essid, psks, columns):
@@ -179,19 +220,28 @@ def planted_hits(nets, specs, planted):
 
 def stacked_consts(nets):
     """Nets of one verify part -> ``(kind, static, consts)``: their
-    constants stacked on a net axis, in the order of the kind's match
+    constants stacked on a net axis, then K3's derived constants
+    (``ops/verify_prep.derive``), in the order of the kind's match
     function (``parallel/step._KINDS``)."""
+    from .ops.verify_prep import derive
     from .parallel.step import _KINDS, _kind_of
 
     kind = _kind_of(nets[0])
     statics, fields, _ = _KINDS[kind]
-    return kind, statics(nets[0]), [torch.stack([getattr(n, f) for n in nets]) for f in fields]
+    static = statics(nets[0])
+    consts = [torch.stack([getattr(n, f) for n in nets]) for f in fields]
+    return kind, static, consts + list(derive(kind, static, consts))
 
 
 def plain_part(kind, static, pmk, consts):
     """A verify part through the plain version (``ops/verify.py``) on any
-    device, shaped as ``_KINDS[kind]``'s match: what K3 is held to."""
+    device, shaped as ``_KINDS[kind]``'s match: what K3 is held to.  The
+    derived constants after the fields, if ``consts`` has them, are not
+    read."""
     from .ops import verify as vf
+    from .parallel.step import _KINDS
+
+    consts = consts[:len(_KINDS[kind][1])]
 
     if kind == "pmkid":
         return vf.pmkid_plain(pmk, *consts)[:, None]

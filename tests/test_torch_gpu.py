@@ -422,28 +422,39 @@ def test_streams_on_the_card_match_lockstep(cuda_device):  # noqa: F811
 # planted in two columns of a ragged batch.
 
 
+#: F = 0 cases of ``test_k3_matches_plain``: the keyver 3 nets with their
+#: MIC over one 16-byte (complete) or 7-byte (padded) block.
+K3_SHORT = {"kv3_f0_complete": b"sixteen byte msg", "kv3_f0_padded": b"seven b"}
+
+
 def _k3_case(kind, device, b=1000):
     """(pmk int32[8, b], the nets, their stacked part (kind, static,
     consts), the expected (net, variant, column) hits)."""
     from dwpa_tpu_torch.models import hashline as hl
 
-    specs = tfx.verify_case_specs(kind)
+    specs = tfx.verify_case_specs("kv3" if kind in K3_SHORT else kind)
     lines = tfx.verify_lines(specs, SLICE_ESSID, f"card-k3-{kind}")
     nets = [tm.prep_net(hl.parse(line), device=device) for line, _ in lines]
     pmk = np.random.default_rng(31 + specs[0][0]).integers(0, 2**32, (8, b), dtype=np.uint64)
     pmk = pmk.astype(np.uint32)
     planted = tfx.plant_pmks(pmk, SLICE_ESSID, [psk for _, psk in lines],
                              [(5 + 11 * i, b - 1 - i) for i in range(3)])
-    return (to_torch(pmk, device), nets, tfx.stacked_consts(nets),
-            tfx.planted_hits(nets, specs, planted))
+    want = tfx.planted_hits(nets, specs, planted)
+    if kind in K3_SHORT:   # the MIC under the exact nonce: variant 0
+        nets = [tfx.short_cmac_net(net, psk, SLICE_ESSID, K3_SHORT[kind])
+                for net, (_, psk) in zip(nets, lines)]
+        want = {(i, 0, col) for col, i in planted.items()}
+    return to_torch(pmk, device), nets, tfx.stacked_consts(nets), want
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", sorted(tfx.VERIFY_CASES))
+@pytest.mark.parametrize("kind", sorted(tfx.VERIFY_CASES) + sorted(K3_SHORT))
 def test_k3_matches_plain(cuda_device, kind):  # noqa: F811
     """K3 on a ragged batch of three nets: one launch, the plain version's
     found matrix bit for bit on the card and on the CPU, the planted hits
-    (non-zero NC variants of both endians, the last column) exactly."""
+    (non-zero NC variants of both endians, the last column) exactly.  The
+    cases cover the AP nonce at offsets 0 and 32 of keyver 1, 2 and 3,
+    and keyver 3 at F = 0, 7, 15 and 16."""
     from dwpa_tpu_torch.parallel.step import _KINDS
 
     pmk, nets, (entry, static, consts), want = _k3_case(kind, cuda_device)
@@ -461,7 +472,7 @@ def test_k3_matches_plain(cuda_device, kind):  # noqa: F811
 
 @pytest.mark.gpu
 def test_k3_wrappers_refuse_strided_operands(cuda_device):  # noqa: F811
-    pmk, _, (_, _, (prf, eap, tgt)), _ = _k3_case("kv2", cuda_device)
+    pmk, _, (_, _, (prf, eap, tgt, *_)), _ = _k3_case("kv2", cuda_device)
     before = dict(verify_cuda.LAUNCHES)
     with pytest.raises(ValueError):
         verify_cuda.eapol_match_cuda(pmk, prf.transpose(2, 3).contiguous().transpose(2, 3),

@@ -88,7 +88,8 @@ def test_element_ops_per_pmk():
 
 # Expressions over four words of 4 elements -> the card's instructions
 # the verify census counts for them, by element (3-input logic and adds,
-# funnel-shift rotates; work on one element counted once).
+# funnel-shift rotates, a rotate that only one sum reads folded into it;
+# work on one element counted once).
 _FUSION = {
     "rotate": (lambda a, b, c, d: common.rotl32(a, 5), {"rotate": 4}),
     "rotr": (lambda a, b, c, d: common.rotr32(a, 7), {"rotate": 4}),
@@ -96,6 +97,11 @@ _FUSION = {
     "ch": (lambda a, b, c, d: (b & c) | (~b & d), {"logic": 4}),
     "xor4": (lambda a, b, c, d: a ^ b ^ c ^ d, {"logic": 8}),
     "add5": (lambda a, b, c, d: common.wadd(a, b, c, d, 0x5A827999), {"add": 8}),
+    "rotate_add": (lambda a, b, c, d: b + common.rotl32(a, 5), {"add": 4}),
+    "sum_of_rotates": (lambda a, b, c, d: common.wadd(common.rotl32(a, 5), b, c, d,
+                                                      common.rotl32(c, 30)), {"add": 12}),
+    "shared_rotate": (lambda a, b, c, d: (lambda r: (r + b) ^ (r + c))(common.rotl32(a, 5)),
+                      {"rotate": 4, "add": 8, "logic": 4}),
     "shared": (lambda a, b, c, d: (lambda t: (t ^ c) + (t & d))(a ^ b),
                {"logic": 12, "add": 4}),
     "broadcast": (lambda a, b, c, d: (b[:1] ^ c[:1]) + a, {"logic": 1, "add": 4}),
@@ -111,17 +117,38 @@ def test_verify_census_fuses_instructions(expr):
     assert +opcount._instructions(graph) == want
 
 
+def test_verify_census_folds_a_nets_constants():
+    """The constants among a sum's terms (marked, or made from marked
+    tensors only) are one term; a sum of constants only keeps its terms;
+    a rotate of a constant is not folded into the sum that reads it."""
+    a, b, c, d = (torch.zeros((4,), dtype=torch.int32) for _ in range(4))
+    want = {"sum": {"add": 4}, "const_sum": {"add": 4},
+            "const_rotate": {"add": 4, "rotate": 4}, "derived": {"add": 4, "logic": 4}}
+    for case, n in want.items():
+        with opcount._Graph() as graph:
+            graph.constant(c, d)
+            {"sum": lambda: common.wadd(a, b, c, d, 0x5A827999),
+             "const_sum": lambda: c + d,
+             "const_rotate": lambda: a + common.rotl32(c, 5),
+             "derived": lambda: common.wadd(a, c ^ d, d, 7)}[case]()
+        assert +opcount._instructions(graph) == n, case
+
+
 def test_verify_census_pmkid_is_four_sha1_compressions():
-    """Two pad states (224 rotates each), the inner block (a constant
-    message: its 64 schedule rotates are the net's, counted once) and the
-    outer; 4 compares a net.  A second net shares the pad states and the
-    3 rotates of the inner and the outer compression that read only the
-    column's pad state."""
+    """Two pad states (140 rotates each: SHA-1's 224 less the 80 rotl 5
+    and the schedule words w[77..79], each folded into the one round sum
+    that reads it, and round 79's rotl 30, folded into the feed-forward),
+    the inner block (a constant message: its schedule is the net's, 77
+    rotl 30 a net) and the outer (138 a net); of each of those two, the
+    rotates of rounds 0-1 that read only the column's pad state are the
+    column's (2 rotl 30, and round 0's rotl 5, whose shape, the column's,
+    is not its sum's, the net's: one rotate, not a fold).  4 compares a
+    net."""
     c = opcount.verify_census("pmkid", (), 2, 1, 0, 1000)
     one = opcount.verify_census("pmkid", (), 1, 1, 0, 1000)
     per_net = c["per_column"] - one["per_column"]
-    assert one["by_class"]["rotate"] == 2 * 224 + 160 + 224
-    assert c["by_class"]["rotate"] == 2 * 224 + 2 * (160 + 224) - 2 * 3
+    assert one["by_class"]["rotate"] == 2 * 140 + (3 + 77) + (3 + 138)
+    assert c["by_class"]["rotate"] == 2 * 140 + 2 * 3 + 2 * (77 + 138)
     assert c["by_class"]["eq"] == 2 * 4
     assert one["per_column"] - per_net > 0           # the shared pad states
     assert c["ops"] == c["per_column"] * 1000 + c["per_part"]
