@@ -18,8 +18,9 @@ hashlib.  Phases, each printed as it ends:
    a seeded 1,048,576-word dictionary in 131072-word batches, the PSK
    planted in the last batch.  Every net must be found with the right
    PSK, NC delta, endian and PMK, through K1 and K3 only (no plain
-   PBKDF2, no plain verify); the breakdown times K3 per verify part
-   beside the plain verify on the same PMKs;
+   PBKDF2, no plain verify); the breakdown times K3 per verify part on
+   the device alone (``kernel_ms``), beside a single call with its host
+   issue and the plain verify on the same PMKs;
 5. the SM probe (K2): its kernel against the plain version for all four
    mixes at 1 and 2 iterations, at full width and at a ragged width
    (exact), then its measurement path (``sm_probe.run``): the four mixes
@@ -162,9 +163,23 @@ hashlib.  Phases, each printed as it ends:
    both ways; every part's time beside its bounds, and cmac's time at F =
    0, 7 and 15 (V = 21): its slope per AES block beside the block's table
    loads at shared memory's rate, its intercept the SHA-256 side.
-   15b: K3's weight in a large ESSID group: one 32-net keyver 2 part and
-   one 8-net keyver 3 part at B = 131072, timed beside K1's batch and held
-   to the plain version on 4096 columns.
+   Then pmkid's net sweep: parts of 1, 2, 7 (bucket-padded to 8) and 32
+   PMKID nets as a crack step builds them, each exact against the plain
+   version on the card and on sampled columns on the CPU, timed: the
+   slope a net and the intercept beside the census's; then small batches
+   (B = 2048 at 1 and 32 nets, B = 16384 at 32), where the kernel splits
+   the nets over the grid, each timed beside the same part with all its
+   nets a thread.
+   15b: K3's weight in a large ESSID group: one 32-net keyver 2 part, one
+   8-net keyver 3 part and one 32-net PMKID part at B = 131072, timed
+   beside K1's batch and held to the plain version on 4096 columns.
+
+Every K3 part time is a device time alone (``kernel_ms``: 20 launches
+queued behind a sleep between one pair of CUDA events, median of 5 runs;
+a run whose sleep ends before the launches are enqueued is discarded and
+the sleep doubled, and the smoke fails after 5 such runs); phase 4
+prints a single call's time, host issue included, beside each;
+``step.verify``'s time in phase 4 is a path time, host issue included.
 
 From phase 6 on, every phase that verifies counts K3's launches (by
 entry) and holds the plain verify at 0 calls; K3's ``launches_by_path``
@@ -222,8 +237,15 @@ K3_PARTS = [("pmkid", ()), ("eapol", (1,)), ("eapol", (2,)), ("cmac", (False,))]
 K3_B = UNIT_BATCH - 3                  # 15: a ragged width at phase 4's scale
 K3_SAMPLE = 512                        # 15: columns held to the CPU plain version
 K3_SPLIT_F = (0, 7, 15)                # 15: cmac timed at these F (V = 21)
-K3_SPLIT_REPS = 21                     # 15: launches a median of the F sweep takes
-K3_WIDE = {"eapol": 32, "cmac": 8}     # 15b: nets in one large ESSID group's part
+K3_REPS = 20                           # kernel_ms: launches between one pair of events
+K3_RUNS = 5                            # kernel_ms: runs a median takes
+K3_SPLIT_RUNS = 9                      # 15: runs a median of the F sweep takes
+SLEEP_HZ = 2.0e9                       # kernel_ms: sleep cycles a second (above the max SM clock)
+SLEEP_MARGIN_S = 0.02                  # kernel_ms: sleep beyond 4x the host's issue time
+SLEEP_RETRIES = 5                      # kernel_ms: runs discarded (sleep doubled) before failing
+K3_WIDE = {"eapol": 32, "cmac": 8, "pmkid": 32}   # 15b: nets in one large ESSID group's part
+K3_PMKID_NETS = (1, 2, 7, 32)          # 15: pmkid's net sweep (7 bucket-padded to 8)
+K3_PMKID_SMALL = ((2048, 1), (2048, 32), (16384, 32))   # 15: pmkid's small batches (B, nets)
 K3_WIDE_CHECK = 4096                   # 15b: columns held to the plain version
 SMEM_LANES_PER_SM_CLOCK = 32           # shared memory: one warp's 32 lanes a clock an SM
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3 (NVIDIA data sheet)
@@ -304,7 +326,8 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, reps):
-    """Median ms of ``fn()`` over ``reps`` runs, timed with CUDA events."""
+    """Median ms of ``fn()`` over ``reps`` runs, timed with CUDA events
+    around one call: a path time, the host's issue of the call included."""
     import torch
 
     fn()
@@ -317,6 +340,52 @@ def cuda_ms(fn, reps):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, runs=K3_RUNS, reps=K3_REPS):
+    """Device ms of one ``fn()`` (a kernel launch and what the host does to
+    issue it), without the host: the median over ``runs`` of ``reps``
+    launches between one pair of CUDA events, all enqueued behind
+    ``torch.cuda._sleep`` so the device runs them back to back.  The sleep
+    is sized from the host's time to issue ``reps`` calls.  An event
+    recorded after it must still be pending when the last launch is
+    enqueued; a run where it is not (the host stalled, as on a GIL switch)
+    is discarded and the sleep doubled, and the run fails after
+    ``SLEEP_RETRIES`` such runs: a figure with host time in it is never
+    returned."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int((4 * issue_s + SLEEP_MARGIN_S) * SLEEP_HZ)
+    times, retries = [], 0
+    while len(times) < runs:
+        fence = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        fence.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        asleep = not fence.query()
+        end.record()
+        end.synchronize()
+        if asleep:
+            times.append(start.elapsed_time(end) / reps)
+            continue
+        retries += 1
+        check(retries <= SLEEP_RETRIES,
+              f"kernel_ms: the sleep ended before {reps} launches were enqueued in "
+              f"{retries} runs, the last of {cycles} cycles ({issue_s * 1e3:.3f} host ms to "
+              f"issue them when timed alone)")
+        cycles *= 2
     return statistics.median(times)
 
 
@@ -432,6 +501,12 @@ def part_label(kind, static, n):
     return f"{kind}{list(static)} x{n}"
 
 
+def part_shape(kind, consts):
+    """(V, rows) of a verify part's stacked constants: its variants and its
+    EAPOL or full CMAC blocks (1 and 0 for pmkid)."""
+    return (1, 0) if kind == "pmkid" else (consts[0].shape[1], consts[1].shape[1])
+
+
 def block0_runs(kind, consts):
     """The distinct PRF blocks 0 a keyver 1/2 part's kernel compresses per
     column, summed over its nets: the run starts of its derived variant
@@ -447,9 +522,11 @@ def k3_trips(kind, n, v, rows, runs):
     """One K3 thread's loop trips for ``ops/sass.dynamic_count``, outermost
     first: eapol's runs of variants that share PRF block 0 (``runs`` over
     ``n`` nets, so a thread's mean), the run's variants, the E EAPOL
-    blocks; cmac's variants and its F + 2 AES blocks; none for pmkid."""
+    blocks; cmac's variants and its F + 2 AES blocks; pmkid's ``n`` nets
+    (a pmkid thread takes a column and its group's nets, the others a
+    (net, column))."""
     if kind == "pmkid":
-        return []
+        return [n]
     if kind == "eapol":
         return [runs / n, v * n / runs, rows]
     return [v, rows + 2]
@@ -513,22 +590,23 @@ def phase_unit(dev, rng, card):
     verify_ms = cuda_ms(lambda: step.verify(pmk_dev), 5)
     parts, k3_parts = [], []
     unit_parts = verify_parts(step, eng._full[essid])
-    check(prep_builds == sum(kind != "pmkid" for kind, *_ in unit_parts),
+    check(prep_builds == len(unit_parts),
           f"phase 4: K3's derived constants built {prep_builds} times for {len(unit_parts)} "
-          f"parts: once per keyver 1/2/3 part, when the step is built")
+          f"parts: once per part, when the step is built")
     for kind, static, n, consts in unit_parts:
-        ms = cuda_ms(lambda: kernel_match(kind, static, pmk_dev, consts), 5)
+        ms = kernel_ms(lambda: kernel_match(kind, static, pmk_dev, consts))
+        call_ms = cuda_ms(lambda: kernel_match(kind, static, pmk_dev, consts), 5)
         plain_ms = cuda_ms(lambda: plain_part(kind, static, pmk_dev, consts), 3)
         check(torch.equal(kernel_match(kind, static, pmk_dev, consts),
                           plain_part(kind, static, pmk_dev, consts)),
               f"phase 4: K3 != plain on {part_label(kind, static, n)}")
-        v = 1 if kind == "pmkid" else consts[0].shape[1]
-        rows = 0 if kind == "pmkid" else consts[1].shape[1]
+        v, rows = part_shape(kind, consts)
         runs = block0_runs(kind, consts)
-        k3_parts.append((kind, static, consts[0].shape[0], v, rows, runs, ms, plain_ms))
+        k3_parts.append((kind, static, consts[0].shape[0], v, rows, runs, ms, plain_ms, call_ms))
         parts.append(f"{part_label(kind, static, n)} (bucket {consts[0].shape[0]}, V {v}"
                      f"{'' if runs is None else f', {runs} distinct PRF blocks 0'}) K3 "
-                     f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+                     f"{ms:.3f} ms on the device ({call_ms:.3f} ms a single call with host "
+                     f"issue), plain {plain_ms:.3f} ms")
     dispatched = eng._dispatch(prep)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -541,8 +619,10 @@ def phase_unit(dev, rng, card):
     decode_ms = (time.perf_counter() - t0) * 1e3
     check(len(got) == len(lines), "breakdown hit batch did not decode every net")
     print(f"phase 4 breakdown per {UNIT_BATCH}-row batch (W={pw.shape[1]}): kernel {k1_ms:.3f} ms "
-          f"(median of 5, CUDA events), verify {verify_ms:.3f} ms (median of 5, 5 nets; "
-          f"parts, K3 median of 5 and plain median of 3 on the same PMKs: {'; '.join(parts)}), "
+          f"(median of 5, CUDA events), step.verify {verify_ms:.3f} ms (a path time, host "
+          f"issue included: median of 5 single calls, 5 nets; parts, K3 on the device alone "
+          f"(median of {K3_RUNS} runs of {K3_REPS} launches queued behind a sleep), a single "
+          f"K3 call (median of 5) and plain (median of 3) on the same PMKs: {'; '.join(parts)}), "
           f"gate {gate_ms:.3f} ms (no-hit batch), decode {decode_ms:.3f} ms (hit batch, "
           f"oracle re-check of 5 nets) [{card}]", flush=True)
     return (launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds, k3_launches,
@@ -3387,8 +3467,8 @@ def phase_k3(dev, rng, card, k1_ms, rates, sass):
     for kind, static, n, consts in parts:
         held(kind, kernel_match(kind, static, pmk_dev, consts),
              tfx.plain_part(kind, static, pmk_dev, consts), part_label(kind, static, n))
-        ms = cuda_ms(lambda: kernel_match(kind, static, pmk_dev, consts), 5)
-        v, rows = (1, 0) if kind == "pmkid" else (consts[0].shape[1], consts[1].shape[1])
+        ms = kernel_ms(lambda: kernel_match(kind, static, pmk_dev, consts))
+        v, rows = part_shape(kind, consts)
         bounds.append(k3_part_bound(kind, static, consts[0].shape[0], v, rows,
                                     block0_runs(kind, consts), b, ms, rates, sass,
                                     f"phase 15 {part_label(kind, static, n)}"))
@@ -3433,8 +3513,8 @@ def phase_k3(dev, rng, card, k1_ms, rates, sass):
     for f in K3_SPLIT_F:
         net, static = split[f]
         _, _, consts = tfx.stacked_consts([net])
-        split_ms[f] = cuda_ms(lambda: kernel_match("cmac", static, pmk_dev, consts),
-                              K3_SPLIT_REPS)
+        split_ms[f] = kernel_ms(lambda: kernel_match("cmac", static, pmk_dev, consts),
+                                K3_SPLIT_RUNS)
         split_recs[f] = k3_part_bound("cmac", static, 1, consts[0].shape[1], f, None, b,
                                       split_ms[f], rates, sass, f"phase 15 cmac at F = {f}")
     f0, f1 = K3_SPLIT_F[0], K3_SPLIT_F[-1]
@@ -3450,7 +3530,8 @@ def phase_k3(dev, rng, card, k1_ms, rates, sass):
     for (kind, static, n, _), rec in zip(parts, bounds):
         print(f"phase 15 {k3_bound_line(rec, b, part_label(kind, static, n))} [{card}]",
               flush=True)
-    print(f"phase 15 cmac time split (one net, V 21, B={b}, median of {K3_SPLIT_REPS}): "
+    print(f"phase 15 cmac time split (one net, V 21, B={b}, on the device alone: median of "
+          f"{K3_SPLIT_RUNS} runs of {K3_REPS} launches): "
           + ", ".join(f"F = {f} {split_ms[f]:.3f} ms (smem bound "
                       f"{split_recs[f]['smem_bound_ms']:.3f}, issue-rate census "
                       f"{split_recs[f]['issue_bound_ms']:.3f})" for f in K3_SPLIT_F)
@@ -3458,17 +3539,129 @@ def phase_k3(dev, rng, card, k1_ms, rates, sass):
           f"loads at shared memory's rate {smem_block:.4f} ms ({smem_block / slope:.1%}); "
           f"intercept (the SHA-256 side, the key schedule and 2 AES blocks) "
           f"{split_ms[f0] - f0 * slope:.3f} ms [{card}]", flush=True)
+    phase_pmkid_sweep(dev, rng, card, rates, sass, held)
     for entry, e in phase_k3_wide(dev, rng, card, k1_ms, rates, sass).items():
         err[entry] = max(err[entry], e)
     return err
 
 
+def pmkid_part(dev, rng, count, b, held):
+    """``count`` PMKID nets as a crack step stacks them (7 bucket-padded
+    to 8) over ``b`` columns, each net's PSK planted at a column spread
+    over the batch and one in the last block (net 0 at B - 1).  The
+    part's found matrix is held to the plain version on the card
+    (``held``) and to the CPU plain version on ``K3_SAMPLE`` columns, its
+    hits to the planted ones.  -> (static, consts, pmk on the card)."""
+    import torch
+
+    from dwpa_tpu_torch import testing as tfx
+    from dwpa_tpu_torch.models import hashline as hl
+    from dwpa_tpu_torch.models import m22000 as m
+    from dwpa_tpu_torch.ops.common import to_torch
+    from dwpa_tpu_torch.parallel.step import build_crack_step
+
+    essid = b"dwpa-torch-k3-pmkid"
+    specs = [(100, 0, "", None)] * count
+    lines = tfx.verify_lines(specs, essid, f"k3-pmkid-{count}")
+    nets = [m.prep_net(hl.parse(line), device=dev) for line, _ in lines]
+    pmk = rng.integers(0, 2**32, (8, b), dtype=np.uint64).astype(np.uint32)
+    planted = tfx.plant_pmks(pmk, essid, [psk for _, psk in lines],
+                             [((i * 3_989 + 1_234) % (b - 256), b - 1 - i)
+                              for i in range(count)])
+    want = tfx.planted_hits(nets, specs, planted)
+    pmk_dev = to_torch(pmk, dev)
+    step = build_crack_step(nets, *m.essid_salt_blocks(essid), dev)
+    ((kind, static, _, consts),) = verify_parts(step, nets)
+    rows = consts[0].shape[0]
+    label = f"pmkid x{count} (bucket {rows}) at B={b}"
+    got = kernel_match(kind, static, pmk_dev, consts)
+    held(kind, got, tfx.plain_part(kind, static, pmk_dev, consts), label)
+    check({tuple(int(x) for x in ix) for ix in got[:count].nonzero()} == want,
+          f"phase 15: {label} hits {got.nonzero().tolist()[:8]}")
+    check(torch.equal(got[count:], got[count - 1:count].expand(rows - count, -1, -1)),
+          f"phase 15: {label}'s bucket rows differ from the net they repeat")
+    cols = sorted(set(rng.choice(b, K3_SAMPLE, replace=False).tolist()) | set(planted))
+    idx = torch.tensor(cols, device=dev)
+    cpu = tfx.plain_part(kind, static, pmk_dev.index_select(1, idx).cpu(),
+                         [c.cpu() for c in consts])
+    held(kind, got.index_select(2, idx).cpu(), cpu, f"{label} against the CPU")
+    return static, consts, pmk_dev
+
+
+def phase_pmkid_sweep(dev, rng, card, rates, sass, held):
+    """Phase 15, pmkid's net sweep: parts of ``K3_PMKID_NETS`` PMKID nets
+    over B = 131069 columns (:func:`pmkid_part`), each timed on the device
+    alone; the slope a net and the intercept are printed beside the
+    census's.  Then the small batches of ``K3_PMKID_SMALL``, where the
+    nets are split over the grid: each part also run with all its nets a
+    thread, exact against the split, and both timed."""
+    import torch
+
+    from dwpa_tpu_torch.ops import verify_cuda
+
+    b = K3_B
+    recs = {}
+    for count in K3_PMKID_NETS:
+        static, consts, pmk_dev = pmkid_part(dev, rng, count, b, held)
+        rows = consts[0].shape[0]
+        label = f"pmkid x{count} (bucket {rows})"
+        ms = kernel_ms(lambda: kernel_match("pmkid", static, pmk_dev, consts))
+        recs[rows] = k3_part_bound("pmkid", static, rows, 1, 0, None, b, ms, rates, sass,
+                                   f"phase 15 {label}")
+        print(f"phase 15 {k3_bound_line(recs[rows], b, label)} [{card}]", flush=True)
+    lo, hi = min(recs), max(recs)
+
+    def line(key):
+        slope = (recs[hi][key] - recs[lo][key]) / (hi - lo)
+        return slope, recs[lo][key] - lo * slope
+
+    ms_net, ms_0 = line("ms")
+    census_net, census_0 = line("census_per_column")
+    sass_net, sass_0 = line("sass_per_column")
+    issue_ms = b / rates["issue"] * 1e3   # ms of one instruction a column at the issue rate
+    print(f"phase 15 pmkid net sweep (B={b}, on the device alone, N = "
+          f"{', '.join(str(n) for n in recs)}): "
+          + ", ".join(f"N = {n} {r['ms']:.4f} ms" for n, r in recs.items())
+          + f"; slope {ms_net:.5f} ms a net against the census's {census_net:.0f} instructions "
+          f"a column a net at the issue rate {census_net * issue_ms:.5f} ms "
+          f"({census_net * issue_ms / ms_net:.1%}) and K3's SASS {sass_net:.0f} "
+          f"({sass_net / census_net:.3f}x the census); intercept {ms_0:.5f} ms against the "
+          f"census's {census_0:.0f} a column (the pad states) {census_0 * issue_ms:.5f} ms and "
+          f"K3's SASS {sass_0:.0f}; every part exact against the plain version on the card "
+          f"and on {K3_SAMPLE}+ columns on the CPU [{card}]", flush=True)
+    for b, count in K3_PMKID_SMALL:
+        static, consts, pmk_dev = pmkid_part(dev, rng, count, b, held)
+        blk, tgt, *prep = consts
+        rows = blk.shape[0]
+        per = verify_cuda.pmkid_nets_per_thread(b, rows, rates["sms"])
+        label = f"pmkid x{count} at B={b}"
+        ms = kernel_ms(lambda: kernel_match("pmkid", static, pmk_dev, consts))
+        rec = k3_part_bound("pmkid", static, rows, 1, 0, None, b, ms, rates, sass,
+                            f"phase 15 {label}")
+        groups = -(-rows // per)
+        out = (f"phase 15 pmkid small batch {k3_bound_line(rec, b, label)}; {per} nets a "
+               f"thread, {groups} groups: {-(-b // verify_cuda.PMKID_BLOCK) * groups} blocks "
+               f"on {rates['sms']} SMs")
+        if per < rows:
+            whole = verify_cuda.pmkid_match_cuda(pmk_dev, blk, tgt, prep, nets_per_thread=rows)
+            check(torch.equal(whole[:, None], kernel_match("pmkid", static, pmk_dev, consts)),
+                  f"phase 15: {label}, all nets a thread != the split")
+            one_ms = kernel_ms(lambda: verify_cuda.pmkid_match_cuda(
+                pmk_dev, blk, tgt, prep, nets_per_thread=rows))
+            one = k3_part_bound("pmkid", static, rows, 1, 0, None, b, one_ms, rates, sass,
+                                f"phase 15 {label}, all nets a thread", per=rows)
+            out += (f"; all {rows} nets a thread ({-(-b // verify_cuda.PMKID_BLOCK)} blocks) "
+                    f"{one_ms:.4f} ms, {one['sass_per_column']:.0f} SASS a column: the split "
+                    f"{one_ms / ms:.2f}x faster")
+        print(f"{out}; exact against the plain version [{card}]", flush=True)
+
+
 def phase_k3_wide(dev, rng, card, k1_ms, rates, sass):
     """Phase 15b: K3's weight in a large ESSID group.  One 32-net keyver 2
-    part and one 8-net keyver 3 part (F = 7) at B = 131072, timed against
-    K1's time per batch (phase 4), each held to its plain version on its
-    first ``K3_WIDE_CHECK`` columns, where every net's PSK is planted.
-    Returns max_abs_err by entry."""
+    part, one 8-net keyver 3 part (F = 7) and one 32-net PMKID part at B =
+    131072, timed against K1's time per batch (phase 4), each held to its
+    plain version on its first ``K3_WIDE_CHECK`` columns, where every
+    net's PSK is planted.  Returns max_abs_err by entry."""
     import torch
 
     from dwpa_tpu_torch import testing as tfx
@@ -3481,7 +3674,7 @@ def phase_k3_wide(dev, rng, card, k1_ms, rates, sass):
     ncs = [(0, ""), (1, "LE"), (-2, "LE"), (2, "BE"), (-1, "BE"), (3, "LE"), (-3, "BE")]
     err = {}
     for kind, n in K3_WIDE.items():
-        keyver = 2 if kind == "eapol" else 3
+        keyver = {"eapol": 2, "cmac": 3, "pmkid": 100}[kind]
         specs = [(keyver, *ncs[i % len(ncs)], None, 32 * (i % 2)) for i in range(n)]
         lines = tfx.verify_lines(specs, essid, f"k3-wide-{kind}")
         nets = [m.prep_net(hl.parse(line), device=dev) for line, _ in lines]
@@ -3498,13 +3691,13 @@ def phase_k3_wide(dev, rng, card, k1_ms, rates, sass):
         check(torch.equal(sl, ref), f"phase 15b: K3 != plain on {kind} x{n}")
         check({tuple(int(x) for x in ix) for ix in got.nonzero()} == want,
               f"phase 15b: {kind} x{n} hits {got.nonzero().tolist()[:8]}")
-        ms = cuda_ms(lambda: kernel_match(kind, static, pmk_dev, consts), 5)
-        rec = k3_part_bound(kind, static, n, consts[0].shape[1], consts[1].shape[1],
-                            block0_runs(kind, consts), b, ms, rates, sass,
-                            f"phase 15b {kind} x{n}")
+        ms = kernel_ms(lambda: kernel_match(kind, static, pmk_dev, consts))
+        v, rows = part_shape(kind, consts)
+        rec = k3_part_bound(kind, static, n, v, rows, block0_runs(kind, consts), b, ms, rates,
+                            sass, f"phase 15b {kind} x{n}")
         print(f"phase 15b {k3_bound_line(rec, b, part_label(kind, static, n))}; held to the "
-              f"plain version on {K3_WIDE_CHECK} columns, {len(want)} planted hits; against K1's "
-              f"{k1_ms:.3f} ms a batch (phase 4): {ms / k1_ms:.1%} [{card}]", flush=True)
+              f"plain version on {K3_WIDE_CHECK} columns, {len(want)} planted hits; against "
+              f"K1's {k1_ms:.3f} ms a batch (phase 4): {ms / k1_ms:.1%} [{card}]", flush=True)
     return err
 
 
@@ -3518,12 +3711,12 @@ def k3_rates(res):
 
     sms = res["sms"]
     clock_hz = float(res["max_sm_clock"].split()[0]) * 1e6
-    return {"issue": sms * sm_probe.ISSUE_PER_SM_CLOCK * clock_hz,
+    return {"sms": sms, "issue": sms * sm_probe.ISSUE_PER_SM_CLOCK * clock_hz,
             "probe": res["mixes"]["sha1_round"]["thread_inst_per_s"],
             "smem": sms * SMEM_LANES_PER_SM_CLOCK * clock_hz}
 
 
-def k3_part_bound(kind, static, n, v, rows, runs, b, ms, rates, sass, what):
+def k3_part_bound(kind, static, n, v, rows, runs, b, ms, rates, sass, what, per=None):
     """One verify part's bounds at ``b`` columns (one launch): the
     instructions its function needs (``ops/opcount.py`` ``verify_census``:
     its plain version's 32-bit ops fused into the card's 3-input
@@ -3531,15 +3724,24 @@ def k3_part_bound(kind, static, n, v, rows, runs, b, ms, rates, sass, what):
     T-table model) at the issue rate and at the probe's rate, the census's
     AES table loads at shared memory's rate, and 32 PMK bytes in and N x V
     result bytes out a column at the HBM rate; beside them what K3's own
-    SASS issues (each instruction once per trip of the loops around it,
-    N x B threads).  Fails if K3 took less than the census at the issue
-    rate, or if K3's own SASS issues fewer instructions a column than the
-    census counts: the census must stay a floor.  -> the part's record."""
+    SASS issues (each instruction once per trip of the loops around it;
+    for pmkid B threads for each group of ``per`` nets, by default as
+    ``verify_cuda.pmkid_nets_per_thread`` splits them, N x B threads for
+    the others).  Fails if K3 took less than
+    the census at the issue rate, or if K3's own SASS issues fewer
+    instructions a column than the census counts: the census must stay a
+    floor.  -> the part's record."""
+    from dwpa_tpu_torch.ops import verify_cuda
     from dwpa_tpu_torch.ops.opcount import verify_census
     from dwpa_tpu_torch.ops.sass import dynamic_count
 
     census = verify_census(kind, static, n, v, rows, b, runs)
-    inst = dynamic_count(sass, k3_function(kind, static), k3_trips(kind, n, v, rows, runs))
+    threads = n   # a column's threads
+    if kind == "pmkid":
+        threads = -(-n // (per or verify_cuda.pmkid_nets_per_thread(b, n, rates["sms"])))
+    inst = dynamic_count(sass, k3_function(kind, static),
+                         k3_trips(kind, n / threads if kind == "pmkid" else n, v, rows, runs))
+    per_column = inst * threads
     rec = {"part": f"{kind}{list(static)}", "nets": n, "variants": v, "blocks": rows,
            "prf_block0_runs": runs, "census_per_column": census["per_column"],
            "census_by_class": census["by_class"], "thread_inst": inst, "ms": ms,
@@ -3547,12 +3749,13 @@ def k3_part_bound(kind, static, n, v, rows, runs, b, ms, rates, sass, what):
            "probe_bound_ms": census["ops"] / rates["probe"] * 1e3,
            "smem_bound_ms": census["by_class"].get("aes_loads", 0) * b / rates["smem"] * 1e3,
            "bytes_bound_ms": b * (32 + n * v) / HBM_BYTES_PER_S * 1e3,
-           "sass_bound_ms": inst * n * b / rates["issue"] * 1e3}
+           "sass_per_column": per_column,
+           "sass_bound_ms": per_column * b / rates["issue"] * 1e3}
     rec["bound_ms"] = max(rec["issue_bound_ms"], rec["bytes_bound_ms"])
     check(rec["issue_bound_ms"] <= ms,
           f"{what}: K3 {ms:.3f} ms under its census bound {rec['issue_bound_ms']:.3f} ms")
-    check(inst * n >= census["per_column"],
-          f"{what}: K3's own SASS issues {inst * n:.0f} instructions a column, fewer than "
+    check(per_column >= census["per_column"],
+          f"{what}: K3's own SASS issues {per_column:.0f} instructions a column, fewer than "
           f"the census's {census['per_column']}")
     return rec
 
@@ -3571,26 +3774,27 @@ def k3_bound_line(rec, b, label):
             f"{rec['census_by_class']}: at the issue rate {rec['issue_bound_ms']:.3f} ms (K3 at "
             f"{rec['issue_bound_ms'] / ms:.1%}), at the probe rate {rec['probe_bound_ms']:.3f} "
             f"ms ({rec['probe_bound_ms'] / ms:.1%}){smem}; bytes {rec['bytes_bound_ms']:.4f} ms; "
-            f"K3 {ms:.3f} ms; K3's own SASS {rec['thread_inst']:.0f} instructions a thread = "
-            f"{rec['sass_bound_ms']:.3f} ms at the issue rate")
+            f"K3 {ms:.3f} ms; K3's own SASS {rec['thread_inst']:.0f} instructions a thread, "
+            f"{rec['sass_per_column']:.0f} a column = {rec['sass_bound_ms']:.3f} ms at the issue "
+            f"rate")
 
 
 def k3_bounds(parts, sass, b, rates, card):
     """K3's bounds at phase 4's shapes, one per verify part (one launch
     each; :func:`k3_part_bound`).  An entry's ms, plain ms and bounds are
     the sums over its parts."""
-    keys = ("ms", "plain_ms", "bound_ms", "issue_bound_ms", "probe_bound_ms", "smem_bound_ms",
-            "bytes_bound_ms", "sass_bound_ms")
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "issue_bound_ms", "probe_bound_ms",
+            "smem_bound_ms", "bytes_bound_ms", "sass_bound_ms")
     k3 = {e: dict.fromkeys(keys, 0.0) | {"parts": []} for e in K3_ENTRIES}
-    for kind, static, n, v, rows, runs, ms, p_ms in parts:
+    for kind, static, n, v, rows, runs, ms, p_ms, call_ms in parts:
         rec = k3_part_bound(kind, static, n, v, rows, runs, b, ms, rates, sass,
                             f"phase 4 {kind}{list(static)}")
-        rec["plain_ms"] = p_ms
+        rec["plain_ms"], rec["call_ms"] = p_ms, call_ms
         for key in keys:
             k3[kind][key] += rec[key]
         k3[kind]["parts"].append(rec)
-        print(f"{k3_bound_line(rec, b, f'{kind}{list(static)}')}; plain {p_ms:.3f} ms [{card}]",
-              flush=True)
+        print(f"{k3_bound_line(rec, b, f'{kind}{list(static)}')}; a single call with host "
+              f"issue {call_ms:.3f} ms; plain {p_ms:.3f} ms [{card}]", flush=True)
     return k3
 
 
@@ -3771,7 +3975,8 @@ def main():
     }] + [{
         "name": f"verify_{e}", "route": "cuda", "source": VERIFY_SOURCE,
         "replaces": K3_ENTRIES[e], "launches": k3_launches[e], "max_abs_err": k3_err[e],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "ms": rec["ms"], "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
         "bound_by": "operations" if rec["issue_bound_ms"] >= rec["bytes_bound_ms"] else "bytes",
         "library_ms": None, "issue_bound_ms": rec["issue_bound_ms"],
         "probe_bound_ms": rec["probe_bound_ms"], "smem_bound_ms": rec["smem_bound_ms"],

@@ -10,35 +10,49 @@
 //   eapol_cmac_match  -> verify_cmac_kernel
 // Each kernel computes its function bit for bit, including the leading
 // net axis and the nonce-correction variant axis, from the int32[8, B] PMK
-// matrix and per-net constants: prep_net's, and for keyver 1/2 and 3 the
-// derived constants that ops/verify_prep.py builds once per crack step.
+// matrix and per-net constants: prep_net's, and the derived constants
+// that ops/verify_prep.py builds once per crack step.
 //
 // What bounds it: integer issue, and for keyver 3 shared-memory loads.
 // Per (net, column) a kernel reads 32 PMK bytes and writes V result bytes
-// against tens of thousands of 32-bit operations: 4 SHA-1 compressions
-// for PMKID; per variant 2 SHA-1 (block 1 of the PRF and its outer hash)
-// + 2 + E + 1 SHA-1 or MD5 (the MIC) for keyver 1/2; per variant 2
-// SHA-256, one AES-128 key schedule and F + 2 AES-128 blocks for keyver
-// 3.  An AES round is 16 table lookups: 1,480 a (variant, column) at F = 7,
-// and shared memory serves one warp's 32 lanes a clock per SM, a quarter
-// of the issue rate and half the integer pipes' rate.  The byte-wise
-// S-box of the first design issued 2.05x the instructions keyver 3's
-// function needs (two shifts, a load and an or a byte), with bank
-// conflicts on its random lookups.
+// against thousands to tens of thousands of 32-bit operations: for PMKID 2
+// SHA-1 compressions a net (the message block and its outer hash) after 2
+// a column (the PMK's pad states); per variant 2 SHA-1 (block 1 of the
+// PRF and its outer hash) + 2 + E + 1 SHA-1 or MD5 (the MIC) for keyver
+// 1/2; per variant 2 SHA-256, one AES-128 key schedule and F + 2 AES-128
+// blocks for keyver 3.  An AES round is 16 table lookups: 1,480 a
+// (variant, column) at F = 7, and shared memory serves one warp's 32 lanes
+// a clock per SM, a quarter of the issue rate and half the integer pipes'
+// rate.  The byte-wise S-box of the first design issued 2.05x the
+// instructions keyver 3's function needs (two shifts, a load and an or a
+// byte), with bank conflicts on its random lookups.
 //
 // What the design does about it:
-//  - one thread per (net row n, column b), blockIdx.y over nets; the PMK's
-//    HMAC pad states are computed once per thread and reused for all V
-//    variants of that net;
+//  - PMKID: one thread per column, the grid over columns.  The PMK's pad
+//    states are computed once a column, then a loop over the part's N
+//    nets runs each net's inner compression from its W + K schedule and
+//    the outer hash: 2 + 2N compressions a column.  The first design ran a
+//    thread per (net, column) that repeated the pads and expanded the
+//    net's schedule, the same for every column, in every thread: 4N
+//    compressions and 2.6x the function's instructions at N = 32.  When
+//    the columns alone would leave the card short of blocks (a small
+//    batch: ops/verify_cuda.pmkid_nets_per_thread decides from B and the
+//    SM count), grid.y splits the nets into groups and each thread
+//    computes the pads once for its group's nets, so a small batch with
+//    many nets still runs short chains on every SM;
+//  - keyver 1/2 and 3: one thread per (net row n, column b), blockIdx.y
+//    over nets; the PMK's HMAC pad states are computed once per thread and
+//    reused for all V variants of that net;
 //  - work that is the same for every column is not done per thread: the
-//    message schedules of the constant blocks (PRF blocks 0 and 1 of
-//    every variant, the EAPOL blocks) come precomputed with the round
-//    constants folded in, read warp-uniformly as 16-byte loads; PRF block
-//    0 is compressed once per distinct value: once per (net, column) for
-//    keyver 3, whose nonce corrections all fall in block 1, and once per
-//    run of equal blocks for keyver 1/2, whose variants the host orders so
-//    that equal blocks 0 are adjacent (``order``, with kNewBlock0 on the
-//    first of a run); each result goes to its variant's own row;
+//    message schedules of the constant blocks (PMKID's message blocks,
+//    PRF blocks 0 and 1 of every variant, the EAPOL blocks) come
+//    precomputed with the round constants folded in, read warp-uniformly
+//    as 16-byte loads; PRF block 0 is compressed once per distinct
+//    value: once per (net, column) for keyver 3, whose nonce corrections
+//    all fall in block 1, and once per run of equal blocks for keyver
+//    1/2, whose variants the host orders so that equal blocks 0 are
+//    adjacent (``order``, with kNewBlock0 on the first of a run); each
+//    result goes to its variant's own row;
 //  - AES rounds 1-9 are T-table lookups, out = T0[a0] ^ T1[a1] ^ T2[a2] ^
 //    T3[a3] ^ rk: 16 loads and 8 three-input xors a round.  The last
 //    round and the key schedule take their S-box bytes out of T0 and T2
@@ -365,12 +379,6 @@ __device__ __forceinline__ void sha1_outer(const uint32_t ost[5], const uint32_t
   sha1_compress(out, w);
 }
 
-// The pre-padded 16-word block at ``src`` (a warp-uniform address).
-__device__ __forceinline__ void load_block(const uint32_t* __restrict__ src, uint32_t w[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) w[i] = src[i];
-}
-
 // The 8 PMK words of column ``b`` as a zero-padded HMAC key block.
 __device__ __forceinline__ void pmk_key(const uint32_t* __restrict__ pmk, int B, int b,
                                         uint32_t key[16]) {
@@ -572,28 +580,37 @@ __device__ __forceinline__ void cmac_dbl(uint32_t s[4]) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernels.  Grid: x over columns, y over nets.
+// Kernels.  Grid: x over columns; for eapol and cmac, y over nets.
 // ---------------------------------------------------------------------------
 
-// PMKID: HMAC-SHA1(PMK, msg block)[:4] == target.  out: [N, B].
+// PMKID: HMAC-SHA1(PMK, msg block)[:4] == target, for each of the N nets.
+// Grid: x over columns, y over groups of ``per`` nets (one group, all N
+// nets, whenever the columns alone fill the card).  A thread computes its
+// PMK's pad states once, then runs its group's nets in turn: the inner
+// compression from the net's W + K schedule, the outer hash, the
+// comparison.  sched: [N, 80]; target: [N, 4]; out: [N, B].
 __global__ void __launch_bounds__(kBlock)
-verify_pmkid_kernel(const uint32_t* __restrict__ pmk, int B, const uint32_t* __restrict__ msg,
-                    const uint32_t* __restrict__ target, uint8_t* __restrict__ out) {
+verify_pmkid_kernel(const uint32_t* __restrict__ pmk, int B, int N, int per,
+                    const uint32_t* __restrict__ sched, const uint32_t* __restrict__ target,
+                    uint8_t* __restrict__ out) {
   const int b = blockIdx.x * kBlock + threadIdx.x;
   if (b >= B) return;
-  const int n = blockIdx.y;
+  const int n0 = blockIdx.y * per, n1 = min(N, n0 + per);
   uint32_t key[16], ist[5], ost[5];
   pmk_key(pmk, B, b, key);
   sha1_pads(key, ist, ost);
-  uint32_t st[5], w[16], mac[5];
+#pragma unroll 1
+  for (int n = n0; n < n1; ++n) {
+    const uint32_t* tg = target + static_cast<size_t>(n) * 4;
+    const uint32_t t0 = __ldg(tg), t1 = __ldg(tg + 1), t2 = __ldg(tg + 2), t3 = __ldg(tg + 3);
+    uint32_t st[5], mac[5];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) st[i] = ist[i];
-  load_block(msg + static_cast<size_t>(n) * 16, w);
-  sha1_compress(st, w);
-  sha1_outer(ost, st, mac);
-  const uint32_t* tg = target + static_cast<size_t>(n) * 4;
-  out[static_cast<size_t>(n) * B + b] =
-      (mac[0] == tg[0]) & (mac[1] == tg[1]) & (mac[2] == tg[2]) & (mac[3] == tg[3]);
+    for (int i = 0; i < 5; ++i) st[i] = ist[i];
+    sha1_compress_wk(st, sched + static_cast<size_t>(n) * 80);
+    sha1_outer(ost, st, mac);
+    out[static_cast<size_t>(n) * B + b] =
+        (mac[0] == t0) & (mac[1] == t1) & (mac[2] == t2) & (mac[3] == t3);
+  }
 }
 
 // EAPOL keyver 1/2: per variant v, KCK = PRF-SHA1(PMK, prf[n, v])[:4],
@@ -753,12 +770,13 @@ dim3 grid_for(int B, int N, int block) { return dim3((B + block - 1) / block, N)
 // Each launch function runs on ``stream`` and returns cudaGetLastError()
 // after the launch (0 = launched).  pmk: [8, B] words; N nets (<= 65535).
 
-extern "C" int verify_pmkid_launch(const void* pmk, int B, const void* msg, const void* target,
-                                   int N, void* out, void* stream) {
+extern "C" int verify_pmkid_launch(const void* pmk, int B, const void* sched, const void* target,
+                                   int N, int per, void* out, void* stream) {
+  if (per < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0 && N > 0) {
-    verify_pmkid_kernel<<<grid_for(B, N, kBlock), kBlock, 0,
+    verify_pmkid_kernel<<<grid_for(B, (N + per - 1) / per, kBlock), kBlock, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(pmk), B, static_cast<const uint32_t*>(msg),
+        static_cast<const uint32_t*>(pmk), B, N, per, static_cast<const uint32_t*>(sched),
         static_cast<const uint32_t*>(target), static_cast<uint8_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());

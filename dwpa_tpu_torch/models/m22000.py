@@ -279,13 +279,17 @@ def pmk_kernel(pw_words, salt1, salt2, iterations=4096):
     return _pmk_impl(pw_words, salt1, salt2, iterations)
 
 
-def _pmkid_impl(pmk, msg_block, target):
+def _pmkid_impl(pmk, msg_block, target, *prep):
     """PMKID match.  ``pmk``: int32[8, B]; ``msg_block``: [N, 16];
-    ``target``: [N, 4] (or one net's [16] and [4]).  -> bool[N, B].
+    ``target``: [N, 4] (or one net's [16] and [4]); ``prep``: K3's
+    derived constants of these nets (``ops/verify_prep.derive``, which a
+    crack step builds once), which the kernel requires and the plain
+    version does not read.  -> bool[N, B].
 
     K3 (``ops/verify_cuda``) for a CUDA ``pmk``, the plain version
     (``ops/verify``, any leading net dims) for a CPU one, nothing else."""
-    return _on_device("verify", pmkid_match_cuda, vf.pmkid_plain, pmk, msg_block, target)
+    return _on_device("verify", functools.partial(pmkid_match_cuda, prep=prep),
+                      vf.pmkid_plain, pmk, msg_block, target)
 
 
 def eapol_match(pmk, prf_blocks, eapol_blocks, target, *prep, keyver):
@@ -294,9 +298,7 @@ def eapol_match(pmk, prf_blocks, eapol_blocks, target, *prep, keyver):
 
     ``pmk``: int32[8, B]; ``prf_blocks``: [N, V, 2, 16];
     ``eapol_blocks``: [N, E, 16]; ``target``: [N, 4]; ``prep``: K3's
-    derived constants of these nets (``ops/verify_prep.derive``, which a
-    crack step builds once), which the kernel requires and the plain
-    version does not read.
+    derived constants as in :func:`_pmkid_impl`.
     Returns bool[N, V, B].
     """
     return _on_device("verify", functools.partial(eapol_match_cuda, prep=prep),
@@ -322,7 +324,8 @@ def net_match(pmk, net: PreppedNet):
     net's K3 constants (``ops/verify_prep.derive``) on every call: a
     check of one net, not a crack path."""
     if net.keyver == 100:
-        return _pmkid_impl(pmk, net.pmkid_block, net.target)[None, :]
+        consts = (net.pmkid_block, net.target)
+        return _pmkid_impl(pmk, *consts, *_net_prep(pmk, "pmkid", (), consts))[None, :]
     if net.keyver == 3:
         consts = (net.prf_blocks, net.cmac_full, net.cmac_last, net.cmac_target)
         static = (bool(net.cmac_last_complete),)

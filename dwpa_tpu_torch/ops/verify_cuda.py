@@ -13,15 +13,15 @@ The plain versions are ``ops/verify.py``; ``models/m22000`` routes a CPU
 ``pmk`` to them and a CUDA one here.  Each wrapper takes its constants
 with one leading net axis ``N`` (or none, for a single net: the wrapper
 adds and removes a net axis of 1), launches on the current stream and
-does not synchronise.  The keyver 1/2 and keyver 3 kernels read the
-part's derived constants (``ops/verify_prep.py``) in place of the
-constants they are built from: the caller builds them once (a crack step
-when it is built) and passes them as ``prep``, which those two wrappers
-require.
+does not synchronise.  The kernels read the part's derived constants
+(``ops/verify_prep.py``) in place of the constants they are built from:
+the caller builds them once (a crack step when it is built) and passes
+them as ``prep``, which every wrapper requires.
 """
 
 import collections
 import ctypes
+import functools
 import threading
 
 import torch
@@ -34,8 +34,15 @@ SOURCE = _nvcc.CSRC / "verify.cu"
 #: counted under a lock: device streams launch from several threads.
 LAUNCHES = collections.Counter()
 
-#: Nets one launch takes (the grid's y dimension).
+#: Nets one launch takes (the grid's y dimension for eapol and cmac).
 MAX_NETS = 65535
+
+#: Threads a block of the PMKID kernel (``kBlock`` in ``verify.cu``).
+PMKID_BLOCK = 128
+#: Blocks an SM gets from the columns alone at or above which a PMKID
+#: thread takes all of a part's nets; below it the nets are split into
+#: groups over the grid's y dimension until the card has that many.
+PMKID_BLOCKS_PER_SM = 4
 
 _lib = None
 _lib_lock = threading.Lock()  # first use may come from any thread
@@ -43,8 +50,8 @@ _count_lock = threading.Lock()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # pmk, B, msg, target, N, out, stream
-    "verify_pmkid_launch": [_P, _I, _P, _P, _I, _P, _P],
+    # pmk, B, sched, target, N, per, out, stream
+    "verify_pmkid_launch": [_P, _I, _P, _P, _I, _I, _P, _P],
     # pmk, B, V, order, prf_sched, E, eapol_sched, target, N, keyver, out, stream
     "verify_eapol_launch": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     # pmk, B, V, prf_sched, F, cmac_words, last_complete, N, out, stream
@@ -101,11 +108,15 @@ def _block_rows(blocks):
     return blocks.shape[1] if blocks.dim() == 3 else -1
 
 
-def check_pmkid(pmk, msg_block, target):
+def check_pmkid(pmk, msg_block, target, prep=None):
     """Validate K3.pmkid's operands: ``msg_block`` int32[N, 16],
-    ``target`` int32[N, 4].  -> N."""
+    ``target`` int32[N, 4]; and ``prep``, if given, the derived
+    ``(sched int32[N, 80],)``.  -> N."""
     n = _nets(msg_block, 1)
     _check_operands(pmk, ("msg_block", msg_block, (n, 16)), ("target", target, (n, 4)))
+    if prep is not None:
+        (sched,) = _prep_arity(prep, ("sched",))
+        _check_operands(pmk, ("sched", sched, (n, 80)), aligned=True)
     return n
 
 
@@ -153,6 +164,21 @@ def check_cmac(pmk, prf_blocks, cmac_full, cmac_last, target, prep=None):
     return n, v, f
 
 
+def pmkid_nets_per_thread(b, n, sms):
+    """The nets one PMKID thread takes at ``b`` columns and ``n`` nets on
+    a card of ``sms`` SMs: all ``n`` when the columns alone give every SM
+    ``PMKID_BLOCKS_PER_SM`` blocks (every batch of 131072 words), else as
+    few as make up that many blocks with the nets' groups, down to one."""
+    blocks = max(1, -(-b // PMKID_BLOCK))
+    groups = min(n, -(-PMKID_BLOCKS_PER_SM * sms // blocks))
+    return -(-n // max(1, groups))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _need_card(entry, pmk):
     if not pmk.is_cuda:
         raise ValueError(f"K3.{entry} needs CUDA tensors")
@@ -174,17 +200,28 @@ def _launch(entry, name, pmk, out, *args):
     return out
 
 
-def pmkid_match_cuda(pmk, msg_block, target):
+def pmkid_match_cuda(pmk, msg_block, target, prep=(), nets_per_thread=None):
     """PMKID match on the GPU -> bool[N, B] (bool[B] for a single net's
     ``msg_block`` int32[16], ``target`` int32[4]); bit-identical to
-    ``ops/verify.pmkid_plain``."""
+    ``ops/verify.pmkid_plain``.  ``prep``: the part's derived constants
+    (``verify_prep.derive``, with their net axis); a call without them
+    raises.  ``nets_per_thread``: by default :func:`pmkid_nets_per_thread`
+    on ``pmk``'s card."""
+    _need_card("pmkid", pmk)
     if msg_block.dim() == 1:
-        return pmkid_match_cuda(pmk, msg_block[None], target[None])[0]
-    n = check_pmkid(pmk, msg_block, target)
+        return pmkid_match_cuda(pmk, msg_block[None], target[None], prep, nets_per_thread)[0]
+    prep = tuple(prep)
+    n = check_pmkid(pmk, msg_block, target, prep)
+    (sched,) = prep
     b = pmk.shape[1]
+    per = nets_per_thread
+    if per is None:
+        per = pmkid_nets_per_thread(b, n, _sm_count(pmk.device.index))
+    if not 1 <= per <= n:
+        raise ValueError(f"nets_per_thread must be in 1..{n}, got {per}")
     out = torch.empty((n, b), dtype=torch.bool, device=pmk.device)
     return _launch("pmkid", "verify_pmkid_launch", pmk, out, pmk.data_ptr(), b,
-                   msg_block.data_ptr(), target.data_ptr(), n, out.data_ptr())
+                   sched.data_ptr(), target.data_ptr(), n, per, out.data_ptr())
 
 
 def eapol_match_cuda(pmk, prf_blocks, eapol_blocks, target, keyver, prep=()):

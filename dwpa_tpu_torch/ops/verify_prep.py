@@ -1,13 +1,13 @@
 """K3's derived constants: the work on a verify part's constants that is
 the same for every PMK column, done once on the host.
 
-The keyver 1/2 and keyver 3 kernels (``csrc/verify.cu``) read these in
-place of work that every thread would otherwise repeat:
+The kernels (``csrc/verify.cu``) read these in place of work that every
+thread would otherwise repeat:
 
-- message schedules of the constant PRF and EAPOL blocks, with the round
-  constants folded in: SHA-1 ``W[t] + K[t]`` (80 words), SHA-256
-  ``W[t] + K[t]`` (64), and for keyver 1's MD5 ``M[g(t)] + T[t]`` (64,
-  in round order);
+- message schedules of PMKID's message blocks and of the constant PRF and
+  EAPOL blocks, with the round constants folded in: SHA-1 ``W[t] + K[t]``
+  (80 words), SHA-256 ``W[t] + K[t]`` (64), and for keyver 1's MD5
+  ``M[g(t)] + T[t]`` (64, in round order);
 - the order of a net's nonce-correction variants that puts the variants
   whose PRF block 0 is equal next to each other, so a kernel compresses
   block 0 once per distinct value (:func:`variant_order`);
@@ -182,13 +182,13 @@ def derive(kind, static, consts):
     as in ``parallel/step._KINDS``; ``consts`` its stacked int32 tensors
     with a leading net axis), as int32 tensors on the constants' device,
     in the order the kind's match function takes them after ``consts``.
-    One copy to the host and one back.  PMKID derives nothing."""
+    One copy to the host and one back."""
     global BUILDS, BUILD_SECONDS
-    if kind == "pmkid":
-        return ()
     t0 = time.perf_counter()
     arrays = _to_host(consts)
-    if kind == "eapol":
+    if kind == "pmkid":   # each net's message block's schedule, [N, 80]
+        out = (sha1_schedule(arrays[0]),)
+    elif kind == "eapol":
         out = eapol_prep(arrays[0], arrays[1], static[0])
     else:
         out = cmac_prep(*arrays)

@@ -70,7 +70,7 @@ _KINDS = {
     "pmkid": (
         lambda net: (),
         ("pmkid_block", "target"),
-        lambda pmk, st, blk, tgt: m._pmkid_impl(pmk, blk, tgt)[:, None],
+        lambda pmk, st, blk, tgt, *prep: m._pmkid_impl(pmk, blk, tgt, *prep)[:, None],
     ),
     "eapol": (
         lambda net: (net.keyver,),

@@ -471,6 +471,46 @@ def test_k3_matches_plain(cuda_device, kind):  # noqa: F811
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 32])
+def test_k3_pmkid_nets_match_plain(cuda_device, n):  # noqa: F811
+    """K3's PMKID kernel, a thread per column over ``n`` nets (3
+    bucket-padded to 4) as a crack step stacks them, on a ragged batch:
+    one launch, every byte the plain version's, the planted hits; the
+    same bytes with 1, 2 and all nets a thread, and a count outside
+    1..N refused."""
+    from dwpa_tpu_torch.models import hashline as hl
+    from dwpa_tpu_torch.parallel.step import _KINDS, build_crack_step
+
+    b = 1000
+    specs = [(100, 0, "", None)] * n
+    lines = tfx.verify_lines(specs, SLICE_ESSID, f"card-pmkid-{n}")
+    nets = [tm.prep_net(hl.parse(line), device=cuda_device) for line, _ in lines]
+    pmk = np.random.default_rng(70 + n).integers(0, 2**32, (8, b), dtype=np.uint64)
+    pmk = pmk.astype(np.uint32)
+    planted = tfx.plant_pmks(pmk, SLICE_ESSID, [psk for _, psk in lines],
+                             [(5 + 13 * i, b - 1 - i) for i in range(n)])
+    step = build_crack_step(nets, *tm.essid_salt_blocks(SLICE_ESSID), cuda_device)
+    ((_, consts),) = step.parts
+    consts = consts[1:]   # the mask first
+    assert consts[-1].shape == ({1: 1, 3: 4, 32: 32}[n], 80)
+    pmk = to_torch(pmk, cuda_device)
+    before = verify_cuda.LAUNCHES["pmkid"], verify.CALLS
+    got = _KINDS["pmkid"][2](pmk, (), *consts)
+    torch.cuda.synchronize()
+    assert (verify_cuda.LAUNCHES["pmkid"], verify.CALLS) == (before[0] + 1, before[1])
+    assert torch.equal(got, tfx.plain_part("pmkid", (), pmk, consts))
+    assert {tuple(int(x) for x in ix) for ix in got[:n].nonzero()} == \
+        tfx.planted_hits(nets, specs, planted)
+    blk, tgt, sched = consts
+    for per in sorted({p for p in (1, 2, blk.shape[0]) if p <= blk.shape[0]}):
+        split = verify_cuda.pmkid_match_cuda(pmk, blk, tgt, (sched,), nets_per_thread=per)
+        assert torch.equal(split[:, None], got), per
+    for per in (0, blk.shape[0] + 1):
+        with pytest.raises(ValueError, match="nets_per_thread"):
+            verify_cuda.pmkid_match_cuda(pmk, blk, tgt, (sched,), nets_per_thread=per)
+
+
+@pytest.mark.gpu
 def test_k3_wrappers_refuse_strided_operands(cuda_device):  # noqa: F811
     pmk, _, (_, _, (prf, eap, tgt, *_)), _ = _k3_case("kv2", cuda_device)
     before = dict(verify_cuda.LAUNCHES)

@@ -1,18 +1,23 @@
 """K3's derived constants (``ops/verify_prep.py``) against the JAX package.
 
-The keyver 1/2 and keyver 3 kernels read message schedules with the
-round constants folded in, a variant order in which equal PRF blocks 0
-are adjacent, CMAC blocks as column words and the AES T-table that
-``csrc/verify.cu`` embeds.  The kernels run only on a card; here each
-derived constant, and a numpy emulation of how the kernel uses it, is
-held to the JAX package's functions on seeded inputs, exactly: SHA-1,
-SHA-256 and MD5 compressions from the schedules, the variant order of
-nets prepped by ``dwpa_tpu``, AES-128 through the kernel's T-table
+The kernels read message schedules with the round constants folded in
+(PMKID's message blocks, the PRF and EAPOL blocks), a variant order in
+which equal PRF blocks 0 are adjacent, CMAC blocks as column words and
+the AES T-table that ``csrc/verify.cu`` embeds.  The kernels run only on
+a card; here each derived constant, and a numpy emulation of how the
+kernel uses it, is held to the JAX package's functions on seeded inputs,
+exactly: SHA-1, SHA-256 and MD5 compressions from the schedules, the
+PMKID kernel's loop (the PMK's pad states once a column, then each net)
+against JAX's ``_pmkid_impl`` and the plain version, the variant order
+of nets prepped by ``dwpa_tpu``, AES-128 through the kernel's T-table
 rounds.  The census (``ops/opcount.verify_census``) must count a PRF
 block 0 that variants share once, and a crack step must derive its
 parts' constants once, when it is built.
 """
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -29,11 +34,12 @@ from dwpa_tpu_torch import testing as tfx
 from dwpa_tpu_torch.models import hashline as hl
 from dwpa_tpu_torch.models import m22000 as tm
 from dwpa_tpu_torch.ops import opcount
+from dwpa_tpu_torch.ops import verify as vf
 from dwpa_tpu_torch.ops import verify_cuda
 from dwpa_tpu_torch.ops import verify_prep as vp
 from dwpa_tpu_torch.ops.common import to_torch
 from dwpa_tpu_torch.oracle import m22000 as oracle
-from dwpa_tpu_torch.parallel.step import _KINDS, build_crack_step
+from dwpa_tpu_torch.parallel.step import _KINDS, _pad_nets, build_crack_step
 
 N = 64  # seeded states and blocks a test
 
@@ -116,6 +122,117 @@ def test_schedules_give_the_jax_compression(alg):
     got = kernel(st, wk)
     for g, r in zip(got, _jax(ref, st, blocks)):
         np.testing.assert_array_equal(g, r)
+
+
+# PMKID: csrc/verify.cu's verify_pmkid_kernel, a thread per column (and
+# group of nets, when a small batch splits them): the PMK's pad states
+# once, then per net the inner compression from the net's W + K schedule
+# and the outer hash.
+
+SHA1_IV = np.array([0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0],
+                   dtype=np.uint32)
+PMKID_B = 24
+
+
+def _pmkid_kernel(pmk, sched, target, per=None):
+    """uint32 pmk[8, B], sched[N, 80], target[N, 4] -> uint8[N, B], in the
+    kernel's loop order, ``per`` nets a thread (all N by default)."""
+    b, nets = pmk.shape[1], sched.shape[0]
+    per = per or nets
+    key = np.concatenate([pmk, np.zeros((8, b), np.uint32)])          # [16, B]
+    pads = [vp.sha1_schedule((key ^ np.uint32(p)).T) for p in (0x36363636, 0x5C5C5C5C)]
+    iv = [np.full(b, w, np.uint32) for w in SHA1_IV]
+    tail = np.zeros((11, b), np.uint32)
+    tail[0], tail[10] = 0x80000000, 84 * 8
+    out = np.zeros((nets, b), np.uint8)
+    for n0 in range(0, nets, per):                                    # grid.y
+        ist, ost = (_sha1_wk(iv, pad) for pad in pads)                # once a thread
+        for n in range(n0, min(nets, n0 + per)):
+            st = _sha1_wk(ist, sched[n])
+            mac = _sha1_wk(ost, vp.sha1_schedule(np.concatenate([np.stack(st), tail]).T))
+            out[n] = np.all(np.stack(mac[:4]) == target[n][:, None], axis=0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _pmkid_case(n):
+    """``n`` PMKID nets, each PSK planted at two columns of a seeded PMK
+    matrix, stacked and bucket-padded as a crack step stacks them.  ->
+    (uint32 pmk[8, B], port block[N, 16], target[N, 4], the schedule,
+    the planted hits)."""
+    lines = tfx.verify_lines([(100, 0, "", None)] * n, ESSID, f"prep-pmkid-{n}")
+    nets = [tm.prep_net(hl.parse(ln), device="cpu") for ln, _ in lines]
+    pmk = np.random.default_rng(40 + n).integers(0, 2**32, (8, PMKID_B), dtype=np.uint64)
+    pmk = pmk.astype(np.uint32)
+    cols = [(i % PMKID_B, PMKID_B - 1 - i % PMKID_B) for i in range(n)]
+    planted = tfx.plant_pmks(pmk, ESSID, [psk for _, psk in lines[:PMKID_B // 2]],
+                             cols[:PMKID_B // 2])
+    blk, tgt = (_pad_nets([getattr(x, f) for x in nets]) for f in ("pmkid_block", "target"))
+    (sched,) = vp.derive("pmkid", (), (blk, tgt))
+    return pmk, blk, tgt, sched, {(i, c) for c, i in planted.items()}
+
+
+def _u32np(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("n", [1, 3, 32])
+def test_pmkid_schedule_gives_jax_pmkid(n):
+    """The kernel's loop over the derived schedules, emulated in numpy,
+    gives JAX's ``_pmkid_impl`` bits over the bucket-padded net axis,
+    with the planted hits."""
+    pmk, blk, tgt, sched, want = _pmkid_case(n)
+    assert sched.shape == (blk.shape[0], 80) == ({1: 1, 3: 4, 32: 32}[n], 80)
+    got = _pmkid_kernel(pmk, _u32np(sched), _u32np(tgt))
+    ref = jax.jit(jax.vmap(jm._pmkid_impl, in_axes=(None, 0, 0)))(
+        jnp.asarray(pmk), jnp.asarray(_u32np(blk)), jnp.asarray(_u32np(tgt)))
+    np.testing.assert_array_equal(got, np.asarray(ref).astype(np.uint8))
+    assert {(int(i), int(c)) for i, c in zip(*got[:n].nonzero())} == want
+
+
+@pytest.mark.parametrize("n", [1, 3, 32])
+def test_pmkid_loop_order_matches_plain(n):
+    """Pads once a column, then the nets: the emulated kernel equals the
+    plain version (``ops/verify.pmkid_plain``), bucket rows included."""
+    pmk, blk, tgt, sched, _ = _pmkid_case(n)
+    got = _pmkid_kernel(pmk, _u32np(sched), _u32np(tgt))
+    ref = vf.pmkid_plain(to_torch(pmk, "cpu"), blk, tgt)
+    np.testing.assert_array_equal(got, ref.numpy().astype(np.uint8))
+
+
+@pytest.mark.parametrize("n,per", [(3, 1), (3, 3), (32, 1), (32, 7)])
+def test_pmkid_split_nets_matches_plain(n, per):
+    """A small batch's split: nets in groups of ``per`` over the grid,
+    the pads once a (column, group); every row the plain version's."""
+    pmk, blk, tgt, sched, _ = _pmkid_case(n)
+    got = _pmkid_kernel(pmk, _u32np(sched), _u32np(tgt), per)
+    ref = vf.pmkid_plain(to_torch(pmk, "cpu"), blk, tgt)
+    np.testing.assert_array_equal(got, ref.numpy().astype(np.uint8))
+
+
+@pytest.mark.parametrize("b,n,sms,per", [
+    (131072, 32, 132, 32), (131069, 32, 132, 32), (131072, 1, 132, 1),
+    (65536, 32, 132, 16), (16384, 32, 132, 7), (2048, 32, 132, 1), (2048, 1, 132, 1),
+    (1, 4, 132, 1), (67584, 8, 132, 8), (67456, 8, 132, 4)])
+def test_pmkid_nets_per_thread(b, n, sms, per):
+    """All of a part's nets a thread once the columns alone give every
+    SM ``PMKID_BLOCKS_PER_SM`` blocks (a batch of 131072 words on an
+    H100's 132); below that the nets split until the groups make it up."""
+    assert verify_cuda.pmkid_nets_per_thread(b, n, sms) == per
+    blocks = -(-b // verify_cuda.PMKID_BLOCK)
+    groups = -(-n // per)
+    assert groups == 1 or blocks * groups >= verify_cuda.PMKID_BLOCKS_PER_SM * sms or per == 1
+
+
+def test_pmkid_prep_is_the_blocks_schedule():
+    """``derive`` for a PMKID part: one build, the SHA-1 schedule (W + K) of
+    each net's message block as int32[N, 80] at a 16-byte boundary."""
+    _, blk, tgt, _, _ = _pmkid_case(3)
+    before = vp.BUILDS
+    (sched,) = vp.derive("pmkid", (), (blk, tgt))
+    assert vp.BUILDS == before + 1
+    assert sched.dtype == torch.int32 and sched.shape == (4, 80) and sched.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(_u32np(sched), vp.sha1_schedule(_u32np(blk)))
 
 
 def _jax_nets(name_or_lines):
@@ -304,8 +421,8 @@ def test_census_counts_a_shared_prf_block_once():
 
 
 def test_crack_step_derives_once_per_part(monkeypatch):
-    """A step for the card derives each keyver 1/2/3 part's constants when
-    it is built (PMKID none), in the kind's order after the fields;
+    """A step for the card derives each part's constants when it is built
+    (PMKID, keyver 1/2 and 3), in the kind's order after the fields;
     verifying does not derive, and a CPU step, whose plain versions do not
     read them, derives nothing."""
     from dwpa_tpu_torch.parallel import step as st
@@ -321,13 +438,14 @@ def test_crack_step_derives_once_per_part(monkeypatch):
         1 + len(_KINDS[kind][1]) for kind in ("pmkid", "eapol", "cmac")]
     monkeypatch.setattr(st, "_kernel_reads", lambda consts: True)  # as a CUDA part
     step = build_crack_step(nets, *salts, torch.device("cpu"))
-    assert vp.BUILDS == before + 2
+    assert vp.BUILDS == before + 3
     # the parts in the nets' order, each the mask, the fields, the derived
     derived = [tuple(tuple(c.shape) for c in consts[1 + len(_KINDS[kind][1]):])
                for kind, (_, consts) in zip(("pmkid", "eapol", "cmac"), step.parts)]
-    assert derived == [(), ((4, 21), (4, 21, 2, 80), (4, 3, 64)), ((4, 22, 64), (4, 9, 4))]
+    assert derived == [((4, 80),), ((4, 21), (4, 21, 2, 80), (4, 3, 64)),
+                       ((4, 22, 64), (4, 9, 4))]
     step.verify(torch.zeros((8, 5), dtype=torch.int32))
-    assert vp.BUILDS == before + 2
+    assert vp.BUILDS == before + 3
 
 
 def _kv_operands(name):
@@ -350,6 +468,21 @@ def test_eapol_prep_check_refuses(case):
             "dtype": (order.long(), sched, esched)}[case]
     with pytest.raises(ValueError):
         verify_cuda.check_eapol(pmk, prf, eap, tgt, 1, prep)
+
+
+@pytest.mark.parametrize("case", ["missing", "arity", "sched_rows", "sched_width",
+                                  "misaligned", "dtype"])
+def test_pmkid_prep_check_refuses(case):
+    pmk, (blk, tgt, sched) = _kv_operands("pmkid")
+    assert verify_cuda.check_pmkid(pmk, blk, tgt, (sched,)) == 3
+    prep = {"missing": (),
+            "arity": (sched, sched),
+            "sched_rows": (sched[:2].contiguous(),),
+            "sched_width": (sched[:, :64].contiguous(),),
+            "misaligned": (torch.zeros(3 * 80 + 1, dtype=torch.int32)[1:].view(3, 80),),
+            "dtype": (sched.long(),)}[case]
+    with pytest.raises(ValueError):
+        verify_cuda.check_pmkid(pmk, blk, tgt, prep)
 
 
 @pytest.mark.parametrize("case", ["arity", "sched_rows", "words_rows", "misaligned"])
@@ -385,4 +518,15 @@ def test_wrapper_derives_what_the_step_passes():
         verify_cuda.cmac_match_cuda(pmk3, prf3, full, last, tgt3, False)
     with pytest.raises(ValueError, match="expected derived constants"):
         verify_cuda.check_cmac(pmk3, prf3, full, last, tgt3, ())
+    assert vp.BUILDS == before
+    pmk1, (blk, tgt1, sched) = _kv_operands("pmkid")
+    assert torch.equal(vp.derive("pmkid", (), (blk, tgt1))[0], sched)
+    before = vp.BUILDS
+    for given in ((), ((sched,),)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            verify_cuda.pmkid_match_cuda(pmk1, blk, tgt1, *given)
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            verify_cuda.pmkid_match_cuda(pmk1, blk[0], tgt1[0], *given)
+    with pytest.raises(ValueError, match="expected derived constants"):
+        verify_cuda.check_pmkid(pmk1, blk, tgt1, ())
     assert vp.BUILDS == before
