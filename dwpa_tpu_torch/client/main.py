@@ -467,6 +467,7 @@ class TpuCrackClient:
                                       seed="warm-k3"),
             ],
             nc=self.cfg.nc, batch_size=self.cfg.batch_size, device=self.device,
+            tracer=self.tracer,
         )
         n = eng.batch_size
         # one block per width bucket
@@ -824,20 +825,21 @@ class TpuCrackClient:
         prior_cand = list(progress.get("cand", []))
         engine = M22000Engine(
             work["hashes"], nc=self.cfg.nc, batch_size=self.cfg.batch_size,
-            device=self.device, pmk_store=self.pmk_store,
+            device=self.device, pmk_store=self.pmk_store, tracer=self.tracer,
         )
         founds = []
         done = skip
         mask_done = mask_skip
 
         def _checkpoint():
-            work["_progress"] = {
-                "done": done,
-                "mask_done": mask_done,
-                "cand": prior_cand
-                + [{"k": f.line.mac_ap.hex(), "v": f.psk.hex()} for f in founds],
-            }
-            self._write_resume(work)
+            with self.tracer.span("client:checkpoint"):
+                work["_progress"] = {
+                    "done": done,
+                    "mask_done": mask_done,
+                    "cand": prior_cand
+                    + [{"k": f.line.mac_ap.hex(), "v": f.psk.hex()} for f in founds],
+                }
+                self._write_resume(work)
 
         def on_batch(consumed, new_founds):
             nonlocal done

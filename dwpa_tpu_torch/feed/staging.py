@@ -25,9 +25,16 @@ happens here, on the consumer thread.
 
 Stream order is untouched: blocks are staged and yielded strictly in
 feed order, and a block is staged exactly once.
+
+With a tracer on the engine (``M22000Engine(tracer=...)``), each pull of
+the next block is a ``feed:next`` span (the feed's starve wait, or the
+framing where no producer runs; the last pull meets the stream's end)
+and each block's staging a ``feed:stage`` span (pinning its rows and
+enqueuing their H2D).
 """
 
 from collections import deque
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -53,6 +60,8 @@ class DeviceStager:
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self.staged = 0
+        tracer = getattr(engine, "tracer", None)
+        self._span = tracer.span if tracer is not None else nullcontext
 
     def h2d(self, rows: np.ndarray) -> torch.Tensor:
         """Start the copy of contiguous uint32 ``rows`` to the device on
@@ -95,12 +104,14 @@ class DeviceStager:
         exhausted = False
         while True:
             while not exhausted and len(staged) <= self.depth:
-                blk = next(self.blocks, None)
+                with self._span("feed:next"):
+                    blk = next(self.blocks, None)
                 if blk is None:
                     exhausted = True
                     break
                 # the H2D starts here, ahead of the caller's dispatch
-                prep = self.engine._prepare_block(blk, stager=self)
+                with self._span("feed:stage"):
+                    prep = self.engine._prepare_block(blk, stager=self)
                 self.staged += 1
                 done = None if self.stream is None else self.stream.record_event()
                 staged.append((blk, prep, done))

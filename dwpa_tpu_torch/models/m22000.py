@@ -47,6 +47,7 @@ Layout of the device work:
 
 import functools
 import struct
+import threading
 import time
 from dataclasses import dataclass
 
@@ -577,6 +578,29 @@ class _ResumeWindow:
         return consumed - take
 
 
+class _Clock:
+    """The engine's stage clock where it has no tracer: the ``seconds``
+    of a ``with`` body, as a span's (no span is opened)."""
+
+    __slots__ = ("t0", "t1")
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter()
+
+    @property
+    def seconds(self) -> float:
+        return self.t1 - self.t0
+
+
+#: ``dwpa_engine_gate_inflight_batches`` buckets: 0 (the gate drained
+#: the device) up to ``PIPELINE_DEPTH`` + 1
+INFLIGHT_BUCKETS = (0, 1, 2, 3, 4)
+
+
 class _Pipeline:
     """Dispatch/sync pipeline of the crack path.
 
@@ -630,10 +654,19 @@ class M22000Engine:
     only device->host sync is one hit-count scalar; the found matrix and
     PMKs cross to the host only on a batch that holds a find, and every
     device hit is re-checked by the oracle before it becomes a ``Found``.
+
+    ``tracer`` (an ``obs.spans.SpanTracer``, optional): the consumer loop
+    reports to it as ``engine:dispatch`` and ``engine:collect`` spans
+    (``engine:gate`` and ``engine:decode`` inside the latter), and its
+    registry takes the engine's counters: the batches still running on
+    the card when the hits gate returns
+    (``dwpa_engine_gate_inflight_batches``, a card only) and the bytes a
+    decode copies to the host (``dwpa_engine_found_fetch_bytes_total``).
+    Without one the engine opens no span and counts nothing.
     """
 
     def __init__(self, lines, nc: int = DEFAULT_NC, batch_size: int = 4096,
-                 device=None, pmk_store=None):
+                 device=None, pmk_store=None, tracer=None):
         self.device = resolve_device(device)
         # Optional persistent PBKDF2 cache (dwpa_tpu_torch.pmkstore): the
         # feed packer splits blocks into cache hits/misses on the producer
@@ -655,7 +688,25 @@ class M22000Engine:
         # blocks "prepare" counts only the residual on-thread work (the
         # device staging); producer-side pack time lives in the feed's
         # ``feed:produce`` spans instead, so the two never double-count.
+        # ``dispatch`` and ``collect`` add the seconds of their regions'
+        # ``engine:dispatch`` / ``engine:collect`` spans: one clock read.
         self.stage_times = {"prepare": 0.0, "dispatch": 0.0, "collect": 0.0}
+        self.tracer = tracer
+        self._inflight = None   # CUDA events, one a dispatched batch
+        self._inflight_lock = threading.Lock()
+        self._m_inflight = self._m_fetch = None
+        if tracer is not None:
+            reg = tracer.registry
+            self._m_fetch = reg.counter(
+                "dwpa_engine_found_fetch_bytes_total",
+                "bytes a hit decode copies to the host (found matrix, "
+                "hit PMK columns)").labels()
+            if self.device.type == "cuda":
+                self._inflight = []
+                self._m_inflight = reg.histogram(
+                    "dwpa_engine_gate_inflight_batches",
+                    "dispatched batches still running on the device when "
+                    "the hits gate returns", buckets=INFLIGHT_BUCKETS).labels()
         for line in lines:
             try:
                 h = line if isinstance(line, hl.Hashline) else hl.parse(line)
@@ -670,6 +721,35 @@ class M22000Engine:
     @property
     def nets(self):
         return [n for group in self.groups.values() for n in group]
+
+    def _span(self, name: str):
+        """The consumer-loop span ``name`` on the engine's tracer, or a
+        bare clock without one; either gives ``seconds``."""
+        return _Clock() if self.tracer is None else self.tracer.span(name)
+
+    def _dispatched(self):
+        """After a batch's launches, inside its ``engine:dispatch`` span:
+        an event behind them, for the gate's in-flight count."""
+        if self._inflight is not None:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            with self._inflight_lock:
+                self._inflight.append(ev)
+
+    def _gated(self):
+        """After the hits gate returned: the dispatched batches whose
+        event has not completed (a non-blocking query) are still on the
+        device; the completed ones are dropped."""
+        if self._inflight is not None:
+            with self._inflight_lock:
+                self._inflight[:] = [ev for ev in self._inflight if not ev.query()]
+                n = len(self._inflight)
+            self._m_inflight.observe(n)
+
+    def _fetched(self, *arrays):
+        """Count host copies of a hit decode's device data."""
+        if self._m_fetch is not None:
+            self._m_fetch.inc(sum(a.nbytes for a in arrays))
 
     def remove(self, found: Found):
         """Drop a cracked net (and empty groups) from further batches."""
@@ -895,16 +975,18 @@ class M22000Engine:
         (cracked nets included — their extra MIC checks are noise next to
         the shared PBKDF2); _collect masks the dead rows.
         """
-        t0 = time.perf_counter()
         pws, nvalid, pw_words = prep
-        if isinstance(pw_words, MixedPrep):
-            return self._dispatch_mixed(pws, nvalid, pw_words, t0)
-        outs = [(self._full[essid], self._step_for(essid)(pw_words))
-                for essid in list(self.groups)]
-        self.stage_times["dispatch"] += time.perf_counter() - t0
-        return pws, nvalid, outs
+        with self._span("engine:dispatch") as sp:
+            if isinstance(pw_words, MixedPrep):
+                rec = self._dispatch_mixed(pws, nvalid, pw_words)
+            else:
+                rec = pws, nvalid, [(self._full[essid], self._step_for(essid)(pw_words))
+                                    for essid in list(self.groups)]
+            self._dispatched()
+        self.stage_times["dispatch"] += sp.seconds
+        return rec
 
-    def _dispatch_mixed(self, pws, nvalid, mp, t0):
+    def _dispatch_mixed(self, pws, nvalid, mp):
         """Mixed hit/miss dispatch (PMK store): per group, PBKDF2 runs
         only on the compacted miss sub-batch, cached PMKs are gathered
         around the computed ones into the full ``int32[8, B]`` matrix
@@ -927,7 +1009,6 @@ class M22000Engine:
                 pmk = (pmk_miss if ent.nhit == 0 else
                        mix_step(pmk_miss, ent.cached_dev, ent.idx_dev))
             outs.append((self._full[essid], step.verify(pmk)))
-        self.stage_times["dispatch"] += time.perf_counter() - t0
         return pws, nvalid, outs, None, writeback
 
     def _decode(self, group, found, pmk_col, pws, live) -> list:
@@ -976,7 +1057,9 @@ class M22000Engine:
         itself — identical founds, no candidate exchange.
         """
         founds = []
-        bits = allgather_host(to_numpy(bits_dev))  # [nproc, R, ceil(b_local/32)]
+        mine = to_numpy(bits_dev)
+        self._fetched(mine)
+        bits = allgather_host(mine)  # [nproc, R, ceil(b_local/32)]
         assert bits.shape[0] * b_local >= nvalid, (bits.shape, b_local, nvalid)
         for r in range(bits.shape[1]):
             if not bits[:, r].any():
@@ -1016,6 +1099,7 @@ class M22000Engine:
         ``psks[k]``, so every engine prunes the same nets.
         """
         found = found_dev.cpu().numpy().copy()  # writable, not the step's
+        self._fetched(found)
         found[:, :, nvalid:] = False
         n, v, width = found.shape
         cols = np.flatnonzero(found.any(axis=(0, 1)))
@@ -1028,6 +1112,7 @@ class M22000Engine:
         if len(cols):
             idx = torch.from_numpy(cols).to(pmk_dev.device)
             pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
+            self._fetched(pmk_cols)
             for i, b in enumerate(cols):
                 psk = pws[int(b)]
                 ex[i, 0:4] = np.frombuffer(struct.pack("<I", base + int(b)), np.uint8)
@@ -1054,58 +1139,65 @@ class M22000Engine:
         are fetched as always, then summed over the slice with one
         all-reduce, so every process takes the same branch and joins the
         same hit exchange."""
-        t0 = time.perf_counter()
         pws, nvalid, outs = dispatched[:3]
         # Rules records carry the dispatch's per-process column count as
         # a 4th element; mixed-block records carry the PMK-store
         # write-back list as a 5th (see _dispatch_mixed).
         b_shard = dispatched[3] if len(dispatched) > 3 else None
         writeback = dispatched[4] if len(dispatched) > 4 else None
-        multiproc = process_count() > 1
-        founds = []
-        live = {id(n.line) for g in self.groups.values() for n in g}
-        # The hits gate: one scalar per group, fetched together, is the
-        # only device->host sync on an all-miss batch.
-        hits = torch.stack([out[0] for _, out in outs]).tolist() if outs else []
-        if multiproc and hits:
-            hits = allreduce_sum_host(np.asarray(hits, np.int64)).tolist()
-        for h, (group, out) in zip(hits, outs):
-            if h == 0:
-                continue
-            if len(out) == 2:  # fused rules chunk: (hits, packed found-any)
-                founds += self._decode_rules(group, out[1], pws, nvalid,
-                                             b_shard, live)
-                continue
-            _, found_dev, pmk_dev = out
-            if multiproc:
-                found, pmk_col, psks = self._gather_find_data(
-                    found_dev, pmk_dev, pws, nvalid)
-                founds += self._decode(group, found, pmk_col, psks, live)
-                continue
-            found = found_dev.cpu().numpy().copy()  # writable, not the step's
-            found[:, :, nvalid:] = False
-            cols = np.flatnonzero(found.any(axis=(0, 1)))
-            if not len(cols):
-                continue
-            # Only the hit columns' PMKs cross to the host.
-            idx = torch.from_numpy(cols).to(pmk_dev.device)
-            pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
-            slot = {int(b): i for i, b in enumerate(cols)}
-            founds += self._decode(group, found, lambda b: pmk_cols[:, slot[b]],
-                                   pws, live)
-        for f in founds:
-            self.remove(f)
-        if writeback and self.pmk_store is not None:
-            # PMK-store write-back: the one place newly derived PMKs leave
-            # the device outside a find.  It runs on the consumer thread
-            # after the hits-gate fetch, one store call per batch; the
-            # [8, nmiss] miss matrices are an intentional per-batch D2H —
-            # they turn the NEXT unit's repeats into hits.
-            self.pmk_store.put_many(
-                (essid, words, to_numpy(pmk[:, :nmiss]))
-                for essid, pmk, words, nmiss in writeback)
-        self.stage_times["collect"] += time.perf_counter() - t0
+        with self._span("engine:collect") as sp:
+            founds = []
+            live = {id(n.line) for g in self.groups.values() for n in g}
+            # The hits gate: one scalar per group, fetched together, is
+            # the only device->host sync on an all-miss batch.
+            with self._span("engine:gate"):
+                hits = torch.stack([out[0] for _, out in outs]).tolist() if outs else []
+                if process_count() > 1 and hits:
+                    hits = allreduce_sum_host(np.asarray(hits, np.int64)).tolist()
+            self._gated()
+            for h, (group, out) in zip(hits, outs):
+                if h:
+                    with self._span("engine:decode"):
+                        founds += self._decode_hits(group, out, pws, nvalid,
+                                                    b_shard, live)
+            for f in founds:
+                self.remove(f)
+            if writeback and self.pmk_store is not None:
+                # PMK-store write-back: the one place newly derived PMKs
+                # leave the device outside a find.  It runs on the
+                # consumer thread after the hits-gate fetch, one store
+                # call per batch; the [8, nmiss] miss matrices are an
+                # intentional per-batch D2H — they turn the NEXT unit's
+                # repeats into hits.
+                self.pmk_store.put_many(
+                    (essid, words, to_numpy(pmk[:, :nmiss]))
+                    for essid, pmk, words, nmiss in writeback)
+        self.stage_times["collect"] += sp.seconds
         return founds
+
+    def _decode_hits(self, group, out, pws, nvalid, b_shard, live) -> list:
+        """The founds of one group the hits gate flagged: its found
+        matrix (a rules chunk's bit mask) and hit PMK columns fetched,
+        in a slice exchanged, then decoded and checked by the oracle."""
+        if len(out) == 2:  # fused rules chunk: (hits, packed found-any)
+            return self._decode_rules(group, out[1], pws, nvalid, b_shard, live)
+        _, found_dev, pmk_dev = out
+        if process_count() > 1:
+            found, pmk_col, psks = self._gather_find_data(
+                found_dev, pmk_dev, pws, nvalid)
+            return self._decode(group, found, pmk_col, psks, live)
+        found = found_dev.cpu().numpy().copy()  # writable, not the step's
+        self._fetched(found)
+        found[:, :, nvalid:] = False
+        cols = np.flatnonzero(found.any(axis=(0, 1)))
+        if not len(cols):
+            return []
+        # Only the hit columns' PMKs cross to the host.
+        idx = torch.from_numpy(cols).to(pmk_dev.device)
+        pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
+        self._fetched(pmk_cols)
+        slot = {int(b): i for i, b in enumerate(cols)}
+        return self._decode(group, found, lambda b: pmk_cols[:, slot[b]], pws, live)
 
     def crack_batch(self, passwords) -> list:
         """One batch of candidate byte-strings -> list[Found]."""
@@ -1190,7 +1282,8 @@ class M22000Engine:
 
         def _default_factory(device):
             return type(self)(lines, nc=self.nc, batch_size=self.batch_size,
-                              device=device, pmk_store=self.pmk_store)
+                              device=device, pmk_store=self.pmk_store,
+                              tracer=self.tracer)
 
         return _default_factory
 
@@ -1361,33 +1454,34 @@ class M22000Engine:
         ``_collect_fused`` has synced."""
         from ..parallel.step import fused_pmk_step, mix_step
 
-        t0 = time.perf_counter()
-        wb = None
-        if fb.nmiss == 0 and fb.cached is not None:
-            pmk = self._h2d(fb.cached)
-            staged = (pmk,)
-        else:
-            w = _trim_cols(int(fb.miss_lens.max()))
-            staged = tuple(self._h2d(a) for a in (
-                np.ascontiguousarray(fb.miss_rows[:, :w]), fb.unit_id,
-                fb.table1, fb.table2))
-            pmk_miss = fused_pmk_step(*staged)
-            entries = [(u.key, u.mlo, u.nmiss, u.miss_words)
-                       for u in fb.units if u.nmiss]
-            wb = (pmk_miss, entries)
-            pmk = pmk_miss
-            if fb.idx is not None:
-                cached, idx = self._h2d(fb.cached), self._h2d(fb.idx)
-                staged += (cached, idx)
-                pmk = mix_step(pmk_miss, cached, idx)
-        outs = []
-        for u in fb.units:
-            group = self._full.get(u.key)
-            if group is None:  # group cracked out from under the stream
-                outs.append((u, None, None))
-                continue
-            outs.append((u, group, self._step_for(u.key).verify(pmk)))
-        self.stage_times["dispatch"] += time.perf_counter() - t0
+        with self._span("engine:dispatch") as sp:
+            wb = None
+            if fb.nmiss == 0 and fb.cached is not None:
+                pmk = self._h2d(fb.cached)
+                staged = (pmk,)
+            else:
+                w = _trim_cols(int(fb.miss_lens.max()))
+                staged = tuple(self._h2d(a) for a in (
+                    np.ascontiguousarray(fb.miss_rows[:, :w]), fb.unit_id,
+                    fb.table1, fb.table2))
+                pmk_miss = fused_pmk_step(*staged)
+                entries = [(u.key, u.mlo, u.nmiss, u.miss_words)
+                           for u in fb.units if u.nmiss]
+                wb = (pmk_miss, entries)
+                pmk = pmk_miss
+                if fb.idx is not None:
+                    cached, idx = self._h2d(fb.cached), self._h2d(fb.idx)
+                    staged += (cached, idx)
+                    pmk = mix_step(pmk_miss, cached, idx)
+            outs = []
+            for u in fb.units:
+                group = self._full.get(u.key)
+                if group is None:  # group cracked out from under the stream
+                    outs.append((u, None, None))
+                    continue
+                outs.append((u, group, self._step_for(u.key).verify(pmk)))
+            self._dispatched()
+        self.stage_times["dispatch"] += sp.seconds
         return fb, outs, wb, staged
 
     def _collect_fused(self, fb, outs, wb, on_batch, tracer) -> list:
@@ -1400,48 +1494,58 @@ class M22000Engine:
         and ``on_batch`` fires per unit in layout order."""
         from contextlib import nullcontext
 
-        t0 = time.perf_counter()
-        founds = []
-        by_unit = {id(u): [] for u, _, _ in outs}
-        live = {id(n.line) for g in self.groups.values() for n in g}
-        with (tracer.span("sched:demux") if tracer else nullcontext()):
-            real = [(u, g, out) for u, g, out in outs if out is not None]
-            hits = torch.stack([out[0] for _, _, out in real]).tolist() if real else []
-            for h, (u, group, out) in zip(hits, real):
-                if h == 0:
-                    continue
-                _, found_dev, pmk_dev = out
-                found = found_dev.cpu().numpy().copy()  # writable, not the step's
-                # Demux mask: zero every column outside this unit's lane
-                # window (other units' candidates + padding).
-                found[:, :, :u.lo] = False
-                found[:, :, u.lo + u.nvalid:] = False
-                cols = np.flatnonzero(found.any(axis=(0, 1)))
-                if not len(cols):
-                    continue
-                idx = torch.from_numpy(cols).to(pmk_dev.device)
-                pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
-                slot = {int(b): i for i, b in enumerate(cols)}
-                new = self._decode(group, found, lambda b: pmk_cols[:, slot[b]],
-                                   _ShiftedWords(u.words, u.lo), live)
-                by_unit[id(u)].extend(new)
-                founds.extend(new)
-            for f in founds:
-                self.remove(f)
-            if wb is not None and self.pmk_store is not None:
-                # Store write-back (consumer thread, after the gate
-                # fetch): each unit's slice of the fused miss PMK matrix
-                # lands under its own ESSID, one store call per batch.
-                pmk_miss, entries = wb
-                pmk_host = to_numpy(pmk_miss[:, :fb.nmiss])
-                self.pmk_store.put_many(
-                    (key, miss_words, pmk_host[:, mlo:mlo + nm])
-                    for key, mlo, nm, miss_words in entries)
-        if on_batch is not None:
-            for u in fb.units:
-                on_batch(u.key, u.count, by_unit[id(u)])
-        self.stage_times["collect"] += time.perf_counter() - t0
+        with self._span("engine:collect") as sp:
+            founds = []
+            by_unit = {id(u): [] for u, _, _ in outs}
+            live = {id(n.line) for g in self.groups.values() for n in g}
+            with (tracer.span("sched:demux") if tracer else nullcontext()):
+                real = [(u, g, out) for u, g, out in outs if out is not None]
+                with self._span("engine:gate"):
+                    hits = torch.stack([out[0] for _, _, out in real]).tolist() if real else []
+                self._gated()
+                for h, (u, group, out) in zip(hits, real):
+                    if h:
+                        with self._span("engine:decode"):
+                            new = self._decode_unit(u, group, out, live)
+                        by_unit[id(u)].extend(new)
+                        founds.extend(new)
+                for f in founds:
+                    self.remove(f)
+                if wb is not None and self.pmk_store is not None:
+                    # Store write-back (consumer thread, after the gate
+                    # fetch): each unit's slice of the fused miss PMK
+                    # matrix lands under its own ESSID, one store call
+                    # per batch.
+                    pmk_miss, entries = wb
+                    pmk_host = to_numpy(pmk_miss[:, :fb.nmiss])
+                    self.pmk_store.put_many(
+                        (key, miss_words, pmk_host[:, mlo:mlo + nm])
+                        for key, mlo, nm, miss_words in entries)
+            if on_batch is not None:
+                for u in fb.units:
+                    on_batch(u.key, u.count, by_unit[id(u)])
+        self.stage_times["collect"] += sp.seconds
         return founds
+
+    def _decode_unit(self, u, group, out, live) -> list:
+        """The founds of one fused unit the hits gate flagged: its found
+        matrix masked down to its own lane window ``[lo, lo + nvalid)``
+        (the other columns are other units' candidates and padding),
+        then the hit PMK columns fetched and decoded."""
+        _, found_dev, pmk_dev = out
+        found = found_dev.cpu().numpy().copy()  # writable, not the step's
+        self._fetched(found)
+        found[:, :, :u.lo] = False
+        found[:, :, u.lo + u.nvalid:] = False
+        cols = np.flatnonzero(found.any(axis=(0, 1)))
+        if not len(cols):
+            return []
+        idx = torch.from_numpy(cols).to(pmk_dev.device)
+        pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
+        self._fetched(pmk_cols)
+        slot = {int(b): i for i, b in enumerate(cols)}
+        return self._decode(group, found, lambda b: pmk_cols[:, slot[b]],
+                            _ShiftedWords(u.words, u.lo), live)
 
     def _rules_flush(self, ctx, batch, account, gbatch, nproc, pid,
                      push, skip):
@@ -1560,11 +1664,12 @@ class M22000Engine:
                     continue  # chunk wholly inside the resume prefix
                 stack = stack_rules([s for _, s in chunk], len(chunk))
                 pws = [_RuleWords(plain, r) for r, _ in chunk]
-                t0 = time.perf_counter()
-                outs = [(self._full[essid],
-                         self._rules_step_for(essid)(base_dev, lens_dev, stack))
-                        for essid in list(self.groups)]
-                self.stage_times["dispatch"] += time.perf_counter() - t0
+                with self._span("engine:dispatch") as sp:
+                    outs = [(self._full[essid],
+                             self._rules_step_for(essid)(base_dev, lens_dev, stack))
+                            for essid in list(self.groups)]
+                    self._dispatched()
+                self.stage_times["dispatch"] += sp.seconds
                 ctx.m_device.inc(expanded)
                 push((pws, nplain, outs, cap // nproc), report)
         # Host-expanded tail: unsupported rules over plain words, plus the
@@ -1837,6 +1942,7 @@ class _RulesStreamEngine:
         self.inner = inner
         self.ctx = ctx
         self.device = inner.device
+        self.tracer = inner.tracer
         self.PIPELINE_DEPTH = inner.PIPELINE_DEPTH
 
     @property

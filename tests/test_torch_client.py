@@ -280,6 +280,28 @@ def test_intra_unit_checkpoint_written(server, tmp_path, monkeypatch):
     assert any(s["_progress"]["cand"] for s in snapshots if "_progress" in s)
 
 
+def test_checkpoint_span_per_batch(server, tmp_path, monkeypatch):
+    """Each batch's resume checkpoint is one ``client:checkpoint`` span
+    inside its pass, beside the engine's spans of the same pass."""
+    _ingest(server, [jtfx.make_pmkid_line(PSK, ESSID, seed="cs1")])
+    _add_dict(server, [b"filler-%06d" % i for i in range(40)] + [PSK])
+    client = _client(server, tmp_path, batch_size=16)
+    writes = []
+    real_write = client._write_resume
+    monkeypatch.setattr(client, "_write_resume",
+                        lambda work: (writes.append(1), real_write(work))[1])
+    res = client.process_work(client.api.get_work(client.dictcount))
+    assert res.accepted
+    checkpoints = client.tracer.records("client:checkpoint")
+    # the unit's first write is its snapshot as read, before any batch
+    assert len(checkpoints) == len(writes) - 1 >= 3
+    assert {r["parent"] for r in checkpoints} == {"pass1", "pass2"}
+    collects = client.tracer.records("engine:collect")
+    assert len(collects) == len(checkpoints)
+    assert {r["parent"] for r in collects} == {"pass1", "pass2"}
+    assert res.stage_times["collect"] == sum(r["t1"] - r["t0"] for r in collects)
+
+
 def test_resume_skips_done_and_resubmits_founds(server, tmp_path):
     _ingest(server, [jtfx.make_pmkid_line(PSK, ESSID, seed="ck2")])
     from dwpa_tpu.server.db import long2mac

@@ -275,6 +275,23 @@ def test_device_stager_rows_equal_host_rows_on_cpu():
             prep[2].numpy(), rows[:max(16, nvalid), :w].view(np.int32))
 
 
+@pytest.mark.parametrize("traced", [True, False])
+def test_device_stager_spans_come_from_the_engine(traced):
+    """With a tracer on the engine every pull is a ``feed:next`` span (the
+    last meets the stream's end) and every staging a ``feed:stage``; an
+    engine without one gives a stager that opens none."""
+    from dwpa_tpu_torch.obs import SpanTracer
+
+    tracer = SpanTracer(MetricsRegistry())
+    eng = tm.M22000Engine(five_net_group(), batch_size=8, device="cpu",
+                          tracer=tracer if traced else None)
+    stager = tfeed.DeviceStager(eng, tfeed.frame_blocks(iter(seeded_words(40, seed=5)), 8))
+    n = sum(1 for _ in stager)
+    assert n == stager.staged == 5
+    names = [r["name"] for r in tracer.records()]
+    assert (names.count("feed:next"), names.count("feed:stage")) == ((6, 5) if traced else (0, 0))
+
+
 def test_device_stager_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

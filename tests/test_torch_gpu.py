@@ -134,6 +134,28 @@ def test_crack_blocks_on_the_card(cuda_device):  # noqa: F811
 
 
 @pytest.mark.gpu
+def test_gate_inflight_on_the_card(cuda_device):  # noqa: F811
+    """One in-flight sample a gated batch, each between 0 and
+    ``PIPELINE_DEPTH``."""
+    from dwpa_tpu_torch.feed import frame_blocks
+    from dwpa_tpu_torch.obs import MetricsRegistry, SpanTracer
+
+    reg = MetricsRegistry()
+    tracer = SpanTracer(reg)
+    words = [b"card-filler-%06d" % i for i in range(8 * 1024)] + [SLICE_PSK]
+    eng = tm.M22000Engine(five_net_group(), batch_size=1024, device=cuda_device,
+                          tracer=tracer)
+    assert len(eng.crack_blocks(frame_blocks(iter(words), 1024))) == 5
+    hist = reg.snapshot()["dwpa_engine_gate_inflight_batches"]
+    assert hist["bucket_bounds"] == [0, 1, 2, 3, 4]
+    (sample,) = hist["samples"]
+    assert sample["count"] == len(tracer.records("engine:gate")) == 9
+    assert sample["buckets"][tm.M22000Engine.PIPELINE_DEPTH + 1:] == [0, 0]
+    assert 0 <= sample["sum"] <= tm.M22000Engine.PIPELINE_DEPTH * sample["count"]
+    assert eng._inflight == []
+
+
+@pytest.mark.gpu
 def test_expand_on_the_card_matches_cpu(cuda_device):  # noqa: F811
     """Every rule of the bundled ruleset expands 4096 seeded words (bytes
     >= 128 included) on the card exactly as on the CPU."""
