@@ -16,12 +16,15 @@ hand its memory to another tensor while the compute stream may still
 read it.  On the CPU, where the caller asked for the CPU, a block's rows
 are a plain host tensor.
 
-The stager composes with the engine's ``_Pipeline`` (which trails the
-hits-gate sync ``PIPELINE_DEPTH`` batches behind dispatch): the
-pipeline hides the device->host gate latency, the stager hides the
-host->device candidate upload, and the feed's producer threads hide
-the packing.  Producer threads never touch the device; all staging
-happens here, on the consumer thread.
+The stager composes with the engine's ``_Pipeline``, which reads each
+block's hits gate ``PIPELINE_DEPTH`` blocks behind dispatch and waits
+on that block's own CUDA event there, so the blocks dispatched after it
+stay queued on the card: the pipeline hides the consumer thread's work
+between gates (the decode, the caller's checkpoint, this stager's pull
+and staging) behind them, the stager hides the host->device candidate
+upload, and the feed's producer threads hide the packing.  Producer
+threads never touch the device; all staging happens here, on the
+consumer thread.
 
 Stream order is untouched: blocks are staged and yielded strictly in
 feed order, and a block is staged exactly once.

@@ -45,6 +45,7 @@ Layout of the device work:
   order.
 """
 
+import contextlib
 import functools
 import struct
 import threading
@@ -601,12 +602,48 @@ class _Clock:
 INFLIGHT_BUCKETS = (0, 1, 2, 3, 4)
 
 
+class _Gate:
+    """A dispatched batch's hits gate (``M22000Engine._arm_gate``).
+
+    ``hits``: the batch's group hit scalars stacked (None without a
+    group).  On a card they are a pinned host copy enqueued behind the
+    batch's launches, and ``event`` is the one CUDA event recorded after
+    that copy on the batch's stream: every host read of the batch waits
+    on it alone, never on the stream's tail.  On the CPU ``event`` is
+    None and ``hits`` is the scalars' own tensor.
+    """
+
+    __slots__ = ("hits", "event")
+
+    def __init__(self, hits, event=None):
+        self.hits = hits
+        self.event = event
+
+
+@dataclass
+class _Batch:
+    """A dispatched batch as ``_collect`` takes it: the hit columns'
+    words ``pws`` and their count ``nvalid``, ``(group, step output)``
+    for each live group in ``outs``, its hits ``gate``; a rules chunk's
+    per-process column count ``b_shard``, a PMK-store block's
+    ``writeback`` list of ``(essid, miss PMKs, miss words, nmiss)``."""
+
+    pws: object
+    nvalid: int
+    outs: list
+    gate: _Gate
+    b_shard: int = None
+    writeback: list = None
+
+
 class _Pipeline:
     """Dispatch/sync pipeline of the crack path.
 
     Holds up to ``engine.PIPELINE_DEPTH`` dispatched batches; ``push``
-    finishes the oldest once the depth is exceeded, so the hits-gate
-    sync always trails the dispatch frontier.  ``on_batch`` fires in
+    finishes the oldest once the depth is exceeded.  Its hits gate waits
+    on that batch's own CUDA event (``M22000Engine._gate``), so the
+    batches dispatched after it stay queued on the card while the host
+    decodes, reports and stages the next block.  ``on_batch`` fires in
     stream order.
     """
 
@@ -651,9 +688,11 @@ class M22000Engine:
 
     Nets are grouped by ESSID, so one PBKDF2 per (candidate, ESSID) feeds
     the PMKID/MIC checks of every net sharing that ESSID.  Per batch the
-    only device->host sync is one hit-count scalar; the found matrix and
-    PMKs cross to the host only on a batch that holds a find, and every
-    device hit is re-checked by the oracle before it becomes a ``Found``.
+    only device->host read is its hit-count scalars, and on a card it
+    waits on the batch's own event; the found matrix and PMKs cross to
+    the host only on a batch that holds a find (on a card on a side
+    stream, behind the same event), and every device hit is re-checked
+    by the oracle before it becomes a ``Found``.
 
     ``tracer`` (an ``obs.spans.SpanTracer``, optional): the consumer loop
     reports to it as ``engine:dispatch`` and ``engine:collect`` spans
@@ -692,7 +731,10 @@ class M22000Engine:
         # ``engine:dispatch`` / ``engine:collect`` spans: one clock read.
         self.stage_times = {"prepare": 0.0, "dispatch": 0.0, "collect": 0.0}
         self.tracer = tracer
-        self._inflight = None   # CUDA events, one a dispatched batch
+        # a card's side stream for a collect's reads (``_fetching``)
+        self._fetch_stream = (torch.cuda.Stream(self.device)
+                              if self.device.type == "cuda" else None)
+        self._inflight = None   # the gates' CUDA events, one a dispatched batch
         self._inflight_lock = threading.Lock()
         self._m_inflight = self._m_fetch = None
         if tracer is not None:
@@ -727,24 +769,65 @@ class M22000Engine:
         bare clock without one; either gives ``seconds``."""
         return _Clock() if self.tracer is None else self.tracer.span(name)
 
-    def _dispatched(self):
+    def _arm_gate(self, scalars) -> _Gate:
         """After a batch's launches, inside its ``engine:dispatch`` span:
-        an event behind them, for the gate's in-flight count."""
+        the batch's hits gate over its group hit ``scalars``.  On a card
+        the stacked scalars are copied ``non_blocking`` into pinned host
+        memory and one CUDA event is recorded after the copy on the
+        current stream (a device stream's own); that event is also the
+        batch's in-flight marker for ``dwpa_engine_gate_inflight_batches``."""
+        hits = torch.stack(scalars) if scalars else None
+        if self.device.type != "cuda":
+            return _Gate(hits)
+        if hits is not None:
+            hits = torch.empty(hits.shape, dtype=hits.dtype,
+                               pin_memory=True).copy_(hits, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
         if self._inflight is not None:
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
             with self._inflight_lock:
                 self._inflight.append(ev)
+        return _Gate(hits, ev)
 
-    def _gated(self):
-        """After the hits gate returned: the dispatched batches whose
-        event has not completed (a non-blocking query) are still on the
-        device; the completed ones are dropped."""
+    def _gate(self, gate: _Gate) -> list:
+        """Read a batch's hits gate: its group hit counts, in a slice
+        summed over the slice with one all-reduce (every process takes
+        the same branch).  On a card it waits on the batch's own event
+        and reads the pinned scalars, and enqueues nothing, so the
+        batches dispatched after it keep the card busy; on the CPU it
+        reads the scalars as they are.
+
+        With a tracer on a card, the dispatched batches whose event has
+        not completed (a non-blocking query) when the gate returns are
+        still on the device: their number is one in-flight sample, and
+        the completed ones are dropped."""
+        with self._span("engine:gate"):
+            if gate.event is not None:
+                gate.event.synchronize()
+            hits = [] if gate.hits is None else gate.hits.tolist()
+            if process_count() > 1 and hits:
+                hits = allreduce_sum_host(np.asarray(hits, np.int64)).tolist()
         if self._inflight is not None:
             with self._inflight_lock:
                 self._inflight[:] = [ev for ev in self._inflight if not ev.query()]
                 n = len(self._inflight)
             self._m_inflight.observe(n)
+        return hits
+
+    def _fetching(self, gate: _Gate):
+        """The context a collect's device reads of its batch run in (the
+        hit decode's found matrix, PMK columns and their gather, the
+        PMK-store write-back): on a card the engine's side stream, made
+        to wait on the batch's gate event first, so each copy waits for
+        its own batch and overlaps the queued ones on the copy engine
+        instead of draining the card.  The batch's record holds its
+        device tensors until the collect returns, and every read there
+        is a blocking copy that syncs the side stream alone.  On the
+        CPU an empty context."""
+        if gate.event is None:
+            return contextlib.nullcontext()
+        self._fetch_stream.wait_event(gate.event)
+        return torch.cuda.stream(self._fetch_stream)
 
     def _fetched(self, *arrays):
         """Count host copies of a hit decode's device data."""
@@ -977,24 +1060,25 @@ class M22000Engine:
         """
         pws, nvalid, pw_words = prep
         with self._span("engine:dispatch") as sp:
+            writeback = None
             if isinstance(pw_words, MixedPrep):
-                rec = self._dispatch_mixed(pws, nvalid, pw_words)
+                outs, writeback = self._dispatch_mixed(pw_words)
             else:
-                rec = pws, nvalid, [(self._full[essid], self._step_for(essid)(pw_words))
-                                    for essid in list(self.groups)]
-            self._dispatched()
+                outs = [(self._full[essid], self._step_for(essid)(pw_words))
+                        for essid in list(self.groups)]
+            gate = self._arm_gate([out[0] for _, out in outs])
         self.stage_times["dispatch"] += sp.seconds
-        return rec
+        return _Batch(pws, nvalid, outs, gate, writeback=writeback)
 
-    def _dispatch_mixed(self, pws, nvalid, mp):
+    def _dispatch_mixed(self, mp):
         """Mixed hit/miss dispatch (PMK store): per group, PBKDF2 runs
         only on the compacted miss sub-batch, cached PMKs are gathered
         around the computed ones into the full ``int32[8, B]`` matrix
         (``parallel.step.mix_step``), and the group's verify runs
         unchanged on that matrix — an all-hit block dispatches NO PBKDF2
-        work.  The returned record carries the write-back list (miss PMK
-        device tensors + their words) that ``_collect`` flushes to the
-        store AFTER its device fetch, on the consumer thread."""
+        work.  Returns ``(outs, writeback)``: the write-back list (miss
+        PMK device tensors + their words) is what ``_collect`` flushes to
+        the store AFTER the hits gate, on the consumer thread."""
         from ..parallel.step import mix_step
 
         outs, writeback = [], []
@@ -1009,7 +1093,7 @@ class M22000Engine:
                 pmk = (pmk_miss if ent.nhit == 0 else
                        mix_step(pmk_miss, ent.cached_dev, ent.idx_dev))
             outs.append((self._full[essid], step.verify(pmk)))
-        return pws, nvalid, outs, None, writeback
+        return outs, writeback
 
     def _decode(self, group, found, pmk_col, pws, live) -> list:
         """Decode one found matrix ([N, V_max, B]) into Found records.
@@ -1131,47 +1215,38 @@ class M22000Engine:
         psks = [bytes(r[5:5 + int(r[4])]) for r in rows]
         return found_c, lambda k: pmk_c[k], psks
 
-    def _collect(self, dispatched) -> list:
+    def _collect(self, rec: _Batch) -> list:
         """Sync stage: gate on hits, decode founds, prune cracked nets,
         then write a mixed block's new PMKs back to the store.
 
-        In a multi-process slice the gate is global: the group scalars
-        are fetched as always, then summed over the slice with one
-        all-reduce, so every process takes the same branch and joins the
-        same hit exchange."""
-        pws, nvalid, outs = dispatched[:3]
-        # Rules records carry the dispatch's per-process column count as
-        # a 4th element; mixed-block records carry the PMK-store
-        # write-back list as a 5th (see _dispatch_mixed).
-        b_shard = dispatched[3] if len(dispatched) > 3 else None
-        writeback = dispatched[4] if len(dispatched) > 4 else None
+        The hits gate (``_gate``), one scalar per group read together, is
+        the only device->host read on an all-miss batch; the decode's and
+        the write-back's reads run behind the batch's own event
+        (``_fetching``).  In a multi-process slice the gate is global, so
+        every process takes the same branch and joins the same hit
+        exchange."""
         with self._span("engine:collect") as sp:
             founds = []
             live = {id(n.line) for g in self.groups.values() for n in g}
-            # The hits gate: one scalar per group, fetched together, is
-            # the only device->host sync on an all-miss batch.
-            with self._span("engine:gate"):
-                hits = torch.stack([out[0] for _, out in outs]).tolist() if outs else []
-                if process_count() > 1 and hits:
-                    hits = allreduce_sum_host(np.asarray(hits, np.int64)).tolist()
-            self._gated()
-            for h, (group, out) in zip(hits, outs):
-                if h:
-                    with self._span("engine:decode"):
-                        founds += self._decode_hits(group, out, pws, nvalid,
-                                                    b_shard, live)
-            for f in founds:
-                self.remove(f)
-            if writeback and self.pmk_store is not None:
-                # PMK-store write-back: the one place newly derived PMKs
-                # leave the device outside a find.  It runs on the
-                # consumer thread after the hits-gate fetch, one store
-                # call per batch; the [8, nmiss] miss matrices are an
-                # intentional per-batch D2H — they turn the NEXT unit's
-                # repeats into hits.
-                self.pmk_store.put_many(
-                    (essid, words, to_numpy(pmk[:, :nmiss]))
-                    for essid, pmk, words, nmiss in writeback)
+            hits = self._gate(rec.gate)
+            with self._fetching(rec.gate):
+                for h, (group, out) in zip(hits, rec.outs):
+                    if h:
+                        with self._span("engine:decode"):
+                            founds += self._decode_hits(group, out, rec.pws, rec.nvalid,
+                                                        rec.b_shard, live)
+                for f in founds:
+                    self.remove(f)
+                if rec.writeback and self.pmk_store is not None:
+                    # PMK-store write-back: the one place newly derived
+                    # PMKs leave the device outside a find.  It runs on
+                    # the consumer thread after the hits gate, one store
+                    # call per batch; the [8, nmiss] miss matrices are an
+                    # intentional per-batch D2H — they turn the NEXT
+                    # unit's repeats into hits.
+                    self.pmk_store.put_many(
+                        (essid, words, to_numpy(pmk[:, :nmiss]))
+                        for essid, pmk, words, nmiss in rec.writeback)
         self.stage_times["collect"] += sp.seconds
         return founds
 
@@ -1215,8 +1290,10 @@ class M22000Engine:
 
         Software pipeline (``_Pipeline``), ``PIPELINE_DEPTH + 1`` deep:
         while the device works on batch N, the host packs and enqueues the
-        next ``PIPELINE_DEPTH`` batches, and the hits-gate sync trails the
-        dispatch frontier by ``PIPELINE_DEPTH`` batches.
+        next ``PIPELINE_DEPTH`` batches.  Batch N's hits gate waits on
+        N's own CUDA event, ``PIPELINE_DEPTH`` batches behind the
+        dispatch frontier, so those batches stay queued on the card
+        while the host decodes N, reports it and packs the next batch.
 
         ``on_batch(consumed, founds)`` is invoked after each batch
         completes, in stream order (consumed = raw candidates in that
@@ -1256,10 +1333,13 @@ class M22000Engine:
 
         Staging is double-buffered (``feed.staging.DeviceStager``): the
         next block's candidate H2D is enqueued on a side stream before
-        this block's steps dispatch, and the ``_Pipeline`` trails the
-        hits-gate sync ``PIPELINE_DEPTH`` batches behind — packing
-        (producer threads), upload (stager) and gate latency (pipeline)
-        all hide behind PBKDF2 compute.
+        this block's steps dispatch, and the ``_Pipeline`` reads each
+        block's hits gate ``PIPELINE_DEPTH`` blocks behind dispatch,
+        waiting on that block's own CUDA event.  So packing (producer
+        threads), upload (stager) and the consumer thread's own work
+        between gates (decode, ``on_batch``'s checkpoint, the next pull
+        and staging) all hide behind the PBKDF2 compute of the blocks
+        still queued.
         """
         from ..feed.staging import DeviceStager
 
@@ -1372,7 +1452,6 @@ class M22000Engine:
         ``sched:fuse`` and sync/demux in ``sched:demux`` spans.
         """
         import collections
-        from contextlib import nullcontext
 
         from ..sched.fuse import fuse_units
 
@@ -1386,16 +1465,16 @@ class M22000Engine:
         raw = 0                         # candidate estimate of pending
 
         def finish_one():
-            fb, outs, wb, _staged = inflight.popleft()
+            fb, outs, wb, gate, _staged = inflight.popleft()
             pipe_founds.extend(
-                self._collect_fused(fb, outs, wb, on_batch, tracer))
+                self._collect_fused(fb, outs, wb, gate, on_batch, tracer))
 
         def flush():
             nonlocal pending, raw
             if not pending:
                 return
             parts_now, pending, raw = pending, [], 0
-            with (tracer.span("sched:fuse") if tracer else nullcontext()):
+            with (tracer.span("sched:fuse") if tracer else contextlib.nullcontext()):
                 fb = fuse_units(parts_now, self.batch_size, 1, max_units,
                                 store=self.pmk_store, salts=self._salts)
             if on_fused is not None:
@@ -1451,7 +1530,7 @@ class M22000Engine:
         derived under a different ESSID, so they cannot match (and
         ``_collect_fused`` masks the columns anyway).  An all-hit batch
         launches no PBKDF2.  The record holds every staged tensor until
-        ``_collect_fused`` has synced."""
+        ``_collect_fused`` has read the batch's hits gate."""
         from ..parallel.step import fused_pmk_step, mix_step
 
         with self._span("engine:dispatch") as sp:
@@ -1480,47 +1559,46 @@ class M22000Engine:
                     outs.append((u, None, None))
                     continue
                 outs.append((u, group, self._step_for(u.key).verify(pmk)))
-            self._dispatched()
+            gate = self._arm_gate([out[0] for _, _, out in outs if out is not None])
         self.stage_times["dispatch"] += sp.seconds
-        return fb, outs, wb, staged
+        return fb, outs, wb, gate, staged
 
-    def _collect_fused(self, fb, outs, wb, on_batch, tracer) -> list:
-        """Sync + demux one fused batch: every unit's hit scalar comes
-        back in ONE fetch; a unit with hits has its found matrix masked
+    def _collect_fused(self, fb, outs, wb, gate, on_batch, tracer) -> list:
+        """Sync + demux one fused batch: every live unit's hit scalar
+        comes back in ONE read of the batch's hits ``gate`` (``_gate``, as
+        in ``_collect``; the decode and write-back read behind its event,
+        ``_fetching``); a unit with hits has its found matrix masked
         down to its OWN lane window ``[lo, lo + nvalid)`` before decode
         (a hit in unit A must never surface as unit B's find — the
         columns outside the window belong to other units), cracked nets
         are pruned, new PMKs go back to the store in one ``put_many``,
         and ``on_batch`` fires per unit in layout order."""
-        from contextlib import nullcontext
-
         with self._span("engine:collect") as sp:
             founds = []
             by_unit = {id(u): [] for u, _, _ in outs}
             live = {id(n.line) for g in self.groups.values() for n in g}
-            with (tracer.span("sched:demux") if tracer else nullcontext()):
+            with (tracer.span("sched:demux") if tracer else contextlib.nullcontext()):
                 real = [(u, g, out) for u, g, out in outs if out is not None]
-                with self._span("engine:gate"):
-                    hits = torch.stack([out[0] for _, _, out in real]).tolist() if real else []
-                self._gated()
-                for h, (u, group, out) in zip(hits, real):
-                    if h:
-                        with self._span("engine:decode"):
-                            new = self._decode_unit(u, group, out, live)
-                        by_unit[id(u)].extend(new)
-                        founds.extend(new)
-                for f in founds:
-                    self.remove(f)
-                if wb is not None and self.pmk_store is not None:
-                    # Store write-back (consumer thread, after the gate
-                    # fetch): each unit's slice of the fused miss PMK
-                    # matrix lands under its own ESSID, one store call
-                    # per batch.
-                    pmk_miss, entries = wb
-                    pmk_host = to_numpy(pmk_miss[:, :fb.nmiss])
-                    self.pmk_store.put_many(
-                        (key, miss_words, pmk_host[:, mlo:mlo + nm])
-                        for key, mlo, nm, miss_words in entries)
+                hits = self._gate(gate)
+                with self._fetching(gate):
+                    for h, (u, group, out) in zip(hits, real):
+                        if h:
+                            with self._span("engine:decode"):
+                                new = self._decode_unit(u, group, out, live)
+                            by_unit[id(u)].extend(new)
+                            founds.extend(new)
+                    for f in founds:
+                        self.remove(f)
+                    if wb is not None and self.pmk_store is not None:
+                        # Store write-back (consumer thread, after the hits
+                        # gate): each unit's slice of the fused miss PMK
+                        # matrix lands under its own ESSID, one store call
+                        # per batch.
+                        pmk_miss, entries = wb
+                        pmk_host = to_numpy(pmk_miss[:, :fb.nmiss])
+                        self.pmk_store.put_many(
+                            (key, miss_words, pmk_host[:, mlo:mlo + nm])
+                            for key, mlo, nm, miss_words in entries)
             if on_batch is not None:
                 for u in fb.units:
                     on_batch(u.key, u.count, by_unit[id(u)])
@@ -1668,10 +1746,10 @@ class M22000Engine:
                     outs = [(self._full[essid],
                              self._rules_step_for(essid)(base_dev, lens_dev, stack))
                             for essid in list(self.groups)]
-                    self._dispatched()
+                    gate = self._arm_gate([out[0] for _, out in outs])
                 self.stage_times["dispatch"] += sp.seconds
                 ctx.m_device.inc(expanded)
-                push((pws, nplain, outs, cap // nproc), report)
+                push(_Batch(pws, nplain, outs, gate, b_shard=cap // nproc), report)
         # Host-expanded tail: unsupported rules over plain words, plus the
         # per-(word, rule) fallbacks collected above.  ``consumed`` counts
         # attempted (word, rule) pairs — rejects included, mirroring how

@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 from torch_fixtures import (  # noqa: F401  (cuda_device is a fixture)
-    PBKDF2_ESSID, SLICE_ESSID, SLICE_PSK, cuda_device, five_net_group, pbkdf2_inputs, salt_essid,
-    slice_dictionary)
+    PBKDF2_ESSID, SLICE_ESSID, SLICE_PSK, cuda_device, five_net_group, hashlib_pmk, pbkdf2_inputs,
+    salt_essid, slice_dictionary)
 
 from dwpa_tpu_torch import testing as tfx
 from dwpa_tpu_torch.client.challenge import challenge
@@ -136,7 +136,10 @@ def test_crack_blocks_on_the_card(cuda_device):  # noqa: F811
 @pytest.mark.gpu
 def test_gate_inflight_on_the_card(cuda_device):  # noqa: F811
     """One in-flight sample a gated batch, each between 0 and
-    ``PIPELINE_DEPTH``."""
+    ``PIPELINE_DEPTH``; and the gate does not drain the card: a batch's
+    collect returns while about 50 ms of work queued behind it (a
+    ``torch.cuda._sleep``, standing in for later batches) still runs, and
+    the batch dispatched after that sleep counts as in flight."""
     from dwpa_tpu_torch.feed import frame_blocks
     from dwpa_tpu_torch.obs import MetricsRegistry, SpanTracer
 
@@ -153,6 +156,49 @@ def test_gate_inflight_on_the_card(cuda_device):  # noqa: F811
     assert sample["buckets"][tm.M22000Engine.PIPELINE_DEPTH + 1:] == [0, 0]
     assert 0 <= sample["sum"] <= tm.M22000Engine.PIPELINE_DEPTH * sample["count"]
     assert eng._inflight == []
+
+    before = sample["sum"]
+    eng = tm.M22000Engine(five_net_group(), batch_size=1024, device=cuda_device,
+                          tracer=tracer)
+    first = eng._dispatch(eng._prepare(words[:1024]))
+    torch.cuda._sleep(int(0.05 * 1.98e9))  # about 50 ms at the H100's 1,980 MHz
+    slept = torch.cuda.Event()
+    slept.record()
+    later = eng._dispatch(eng._prepare(words[1024:2048]))
+    assert eng._collect(first) == []
+    assert not slept.query(), "the gate waited for the work queued behind its batch"
+    (sample,) = reg.snapshot()["dwpa_engine_gate_inflight_batches"]["samples"]
+    assert sample["count"] == 10 and sample["sum"] >= before + 1
+    assert eng._collect(later) == []
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_find_gated_behind_queued_batches(cuda_device, monkeypatch):  # noqa: F811
+    """Finds in the second of five 1,024-word blocks: on the card that
+    block is gated while the three behind it are queued, and decoded on
+    the engine's side stream.  The founds, their PSKs and the
+    ``on_batch`` reports (count, founds) equal the CPU engine's, whose
+    reads are synchronous, over the same blocks (hashlib PMKs there)."""
+    from dwpa_tpu_torch.feed import frame_blocks
+
+    real = tm._pmk_impl
+    monkeypatch.setattr(tm, "_pmk_impl", lambda pw, *a, **k: (
+        real(pw, *a, **k) if pw.is_cuda else hashlib_pmk(pw, *a, **k)))
+    words = [b"card-filler-%06d" % i for i in range(5 * 1024)]
+    words[1024 + 517] = SLICE_PSK
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        eng = tm.M22000Engine(five_net_group(), batch_size=1024, device=dev)
+        assert eng.PIPELINE_DEPTH == 3
+        reports = []
+        founds = eng.crack_blocks(frame_blocks(iter(words), 1024),
+                                  on_batch=lambda c, f: reports.append((c, f)))
+        runs.append((founds, reports))
+    (card, card_reports), (cpu, cpu_reports) = runs
+    assert len(card) == 5 and {f.psk for f in card} == {SLICE_PSK}
+    assert card == cpu and card_reports == cpu_reports
+    assert [(c, len(f)) for c, f in card_reports] == [(1024, 0), (1024, 5)] + [(1024, 0)] * 3
 
 
 @pytest.mark.gpu

@@ -250,3 +250,31 @@ def test_obs_imports_no_torch():
 def test_inflight_histogram_records_nothing_on_the_cpu(monkeypatch):
     _, _, reg, _ = _crack(monkeypatch, 3, True)
     assert reg.value("dwpa_engine_gate_inflight_batches") is None
+
+
+@pytest.mark.parametrize("hit", [False, True])
+def test_cpu_gate_reads_the_scalars_and_records_no_event(monkeypatch, hit):
+    """On the CPU the hits gate is the group hit scalars' own tensor, read
+    as it is when the batch is collected: no CUDA event or stream is made,
+    the decode's reads take no stream context, and no in-flight sample is
+    taken."""
+    monkeypatch.setattr(tm, "_pmk_impl", hashlib_pmk)
+
+    def no_cuda(*args, **kwargs):
+        raise AssertionError("a CPU engine made a CUDA event or stream")
+
+    monkeypatch.setattr(torch.cuda, "Event", no_cuda)
+    monkeypatch.setattr(torch.cuda, "Stream", no_cuda)
+    reg = MetricsRegistry()
+    eng = tm.M22000Engine(five_net_group(), batch_size=BATCH, device="cpu",
+                          tracer=SpanTracer(reg))
+    rec = eng._dispatch(eng._prepare(_words(1, hit)))
+    gate = rec.gate
+    assert gate.event is None and gate.hits.device.type == "cpu"
+    assert torch.equal(gate.hits, torch.stack([out[0] for _, out in rec.outs]))
+    assert eng._gate(gate) == gate.hits.tolist() and (sum(gate.hits.tolist()) > 0) == hit
+    with eng._fetching(gate) as ctx:
+        assert ctx is None  # no stream context on the CPU
+    assert len(eng._collect(rec)) == (5 if hit else 0)
+    assert eng._fetch_stream is None and eng._inflight is None
+    assert reg.value("dwpa_engine_gate_inflight_batches") is None
