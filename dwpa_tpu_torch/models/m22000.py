@@ -505,9 +505,22 @@ class _RulesCtx:
             "by reason (purge = unsupported op, overflow = length/HEX)")
         self.m_purge = fb.labels(reason="purge")
         self.m_overflow = fb.labels(reason="overflow")
+        cols = reg.counter(
+            "dwpa_rules_k1_columns_total",
+            "K1 columns this process launched for the rules seam, by fill "
+            "(candidate = the column carries a (word, rule) pair or a "
+            "valid host-tail candidate, pad = padding to the batch)")
+        self.m_cols_cand = cols.labels(fill="candidate")
+        self.m_cols_pad = cols.labels(fill="pad")
 
     def span(self, name: str):
         return self.tracer.span(name)
+
+    def launched(self, groups: int, columns: int, candidates: int):
+        """Count one dispatch's K1 columns: ``columns`` a group, of which
+        ``candidates`` carry one, for each of ``groups`` ESSID groups."""
+        self.m_cols_cand.inc(groups * candidates)
+        self.m_cols_pad.inc(groups * (columns - candidates))
 
 
 class _BlockAgg:
@@ -1694,9 +1707,14 @@ class M22000Engine:
                 # skip-by-count resume would overshoot.
                 if lens_np is None:
                     lens_np = np.asarray([len(w) for w in plain], np.int32)
+                # Pad to the global batch size like _prepare, so every
+                # base block has one shape (and splits evenly over the
+                # slice's processes); this process runs rows [lo, hi).
+                cap = max(gbatch, -(-nplain // nproc) * nproc)
+                lo, hi = pid * (cap // nproc), (pid + 1) * (cap // nproc)
                 for c0 in range(0, len(dev_rules), RULES_CHUNK):
                     chunk = dev_rules[c0:c0 + RULES_CHUNK]
-                    overflow = 0
+                    overflow = overflow_mine = 0
                     for rule, _steps in chunk:
                         _, hostneed = simulate_lens(rule, lens_np)
                         if hostneed.any():
@@ -1704,14 +1722,13 @@ class M22000Engine:
                                      for i in np.flatnonzero(hostneed)]
                             fallback.extend(pairs)
                             overflow += len(pairs)
+                            overflow_mine += int(hostneed[lo:hi].sum())
                     expanded = nplain * len(chunk) - overflow
-                    plan.append((chunk, expanded, account(expanded)))
-            if any(rep for _, _, rep in plan):
+                    # the expanded pairs in this process's rows
+                    mine = len(chunk) * max(0, min(hi, nplain) - lo) - overflow_mine
+                    plan.append((chunk, expanded, account(expanded), mine))
+            if any(rep for _, _, rep, _ in plan):
                 t0 = time.perf_counter()
-                # Pad to the global batch size like _prepare, so every
-                # base block has one shape (and splits evenly over the
-                # slice's processes).
-                cap = max(gbatch, -(-nplain // nproc) * nproc)
                 if pre is not None:
                     rows = pre.padded_rows(cap)  # a copy, never the mmap
                 else:
@@ -1726,7 +1743,6 @@ class M22000Engine:
                 lens_pad[:nplain] = lens_np
                 # Every process packed the identical global batch; ship
                 # only this process's row slice.
-                lo, hi = pid * (cap // nproc), (pid + 1) * (cap // nproc)
                 base_dev = self._h2d(np.ascontiguousarray(rows[lo:hi]))
                 lens_dev = self._h2d(np.ascontiguousarray(lens_pad[lo:hi]))
                 self.stage_times["prepare"] += time.perf_counter() - t0
@@ -1735,7 +1751,7 @@ class M22000Engine:
             # verify per rule, per group, with ONE hits gate.  Nothing is
             # compiled per shape, so a short last chunk is stacked at its
             # own length instead of being padded with noop rules.
-            for chunk, expanded, report in plan:
+            for chunk, expanded, report, mine in plan:
                 if not self.groups:
                     break
                 if report == 0:
@@ -1749,6 +1765,7 @@ class M22000Engine:
                     gate = self._arm_gate([out[0] for _, out in outs])
                 self.stage_times["dispatch"] += sp.seconds
                 ctx.m_device.inc(expanded)
+                ctx.launched(len(outs), cap // nproc * len(chunk), mine)
                 push(_Batch(pws, nplain, outs, gate, b_shard=cap // nproc), report)
         # Host-expanded tail: unsupported rules over plain words, plus the
         # per-(word, rule) fallbacks collected above.  ``consumed`` counts
@@ -1770,6 +1787,7 @@ class M22000Engine:
                 cands = cands[pid * blk:(pid + 1) * blk]
             prep = self._prepare(cands)
             if prep is not None and self.groups:
+                ctx.launched(len(self.groups), prep[2].shape[0], prep[1])
                 push(self._dispatch(prep), report)
             else:
                 skip(report)

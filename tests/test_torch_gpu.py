@@ -410,6 +410,143 @@ def test_warm_crack_rules_blocks_on_the_card(cuda_device, tmp_path):  # noqa: F8
 
 
 @pytest.mark.gpu
+def test_rules_block_at_the_cells_shape(cuda_device, tmp_path):  # noqa: F811
+    """The rules cell's shape (``unit5.rules_warm``): one warm ``.rbase``
+    block of 8,192 seeded base words of the rules mix's lengths, at batch
+    131,072, with unit5's five nets (one of each verify kind), under all
+    105 rules of ``wpa.rule``.  The finds are the ``rule(word)`` PSKs
+    planted through four distinct rules, each cracking its net by the
+    benchmark's hashlib reference; the fifth net stays uncracked; K1 runs
+    once a rule, and once more for the host tail of overflow pairs only
+    where one of them is a valid PSK (in the mix they all come out longer
+    than 63 bytes); the K1 column counter reads what the plan of
+    ``simulate_lens`` predicts."""
+    from port_bench import gen, rules_ref
+    from port_bench import reference as ref
+    from port_bench.run import HERE, load_json
+
+    from dwpa_tpu_torch.feed import DictCache, RulesFeedSource
+    from dwpa_tpu_torch.feed.framing import rules_base_eligible
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.rules import parse_rules
+    from dwpa_tpu_torch.rules.device import device_supported, simulate_lens
+
+    batch, traffic = 131072, load_json(HERE / "traffic" / "rules_warm.json")
+    rule_text = gen.traffic_rules(traffic)
+    rules = parse_rules(rule_text)
+    rng = np.random.default_rng(20261018)
+    words = gen.Dict(*gen.dict_text(rng, traffic["dict_words"], traffic["len_weights"])).words
+    planted, used = [], set()
+    while len(planted) < 4:
+        k, w = int(rng.integers(len(rules))), words[int(rng.integers(len(words)))]
+        psk = rules_ref.apply(rule_text[k], w)
+        if k not in used and psk is not None and 8 <= len(psk) <= 63 and psk not in planted:
+            used.add(k)
+            planted.append(psk)
+    essid = b"pb-rules-card"
+    lines = [tfx.make_eapol_line(planted[0], essid, keyver=2, seed="rc-k2"),
+             tfx.make_pmkid_line(planted[1], essid, seed="rc-pmkid"),
+             tfx.make_eapol_line(planted[2], essid, keyver=2, nc_delta=-2, endian="BE",
+                                 seed="rc-k2be"),
+             tfx.make_eapol_line(planted[3], essid, keyver=1, seed="rc-k1"),
+             tfx.make_eapol_line(b"uncracked net #5", essid, keyver=3, seed="rc-k3")]
+    units = _gz_dict(tmp_path, words)
+    reg = MetricsRegistry()
+    cache = DictCache(str(tmp_path / "dc"), registry=reg)
+    _, writer = cache.entry(units[0][1], rules=True)
+    writer.add_many(words)
+    assert writer.commit()
+
+    eng = tm.M22000Engine(lines, batch_size=batch, device=cuda_device)
+    before = pbkdf2_cuda.LAUNCHES
+    founds = eng.crack_rules_blocks(RulesFeedSource(units, batch, cache=cache), rules,
+                                    registry=reg)
+    launches = pbkdf2_cuda.LAUNCHES - before
+    assert reg.value("dwpa_dictcache_hit_blocks_total") == 1
+    assert sorted((f.line.raw, f.psk) for f in founds) == sorted(zip(lines[:4], planted))
+    for f in founds:
+        assert ref.check_psk(f.line.raw, f.psk, eng.nc)
+        assert f.pmk == hashlib.pbkdf2_hmac("sha1", f.psk, essid, 4096, 32)
+
+    # the plan: every rule on the device over the whole block but its
+    # overflow pairs, which the host tail expands into at most one padded
+    # batch, launched only if one of its candidates is 8-63 bytes long
+    assert all(map(device_supported, rules)) and all(map(rules_base_eligible, words))
+    lens = np.array([len(w) for w in words], np.int32)
+    need = [simulate_lens(r, lens)[1] for r in rules]
+    expanded = sum(len(words) - int(n.sum()) for n in need)
+    tail = [r.apply(words[i]) for r, n in zip(rules, need) for i in np.flatnonzero(n)]
+    tail = [t for t in tail if t is not None]
+    assert 0 < len(tail) < batch
+    in_tail = sum(8 <= len(t) <= 63 for t in tail)
+    assert launches == len(rules) + bool(in_tail)
+    assert reg.value("dwpa_rules_device_expanded_total") == expanded
+    assert reg.value("dwpa_rules_k1_columns_total", fill="candidate") == expanded + in_tail
+    assert reg.value("dwpa_rules_k1_columns_total", fill="pad") == (
+        batch * launches - expanded - in_tail)
+
+
+@pytest.mark.gpu
+def test_rules_unit_across_dicts_and_resume_on_the_card(cuda_device, tmp_path):  # noqa: F811
+    """A rules unit of three warm dicts of 4,096 seeded base words, one
+    base block each at batch 4,096, under all 105 rules of ``wpa.rule``:
+    one ``rule(word)`` PSK planted in each dict, through three distinct
+    rules, each cracking its own net.  Every PSK is found and checked by
+    hashlib, the reports count every (word, rule) pair once, and a run
+    resumed past the first dict's pairs finds the two later PSKs alone
+    and reports only the pairs after the skip."""
+    from port_bench import gen, rules_ref
+    from port_bench import reference as ref
+    from port_bench.run import HERE, load_json
+
+    from dwpa_tpu_torch.feed import DictCache, RulesFeedSource
+    from dwpa_tpu_torch.obs import MetricsRegistry
+    from dwpa_tpu_torch.rules import parse_rules
+
+    batch, traffic = 4096, load_json(HERE / "traffic" / "rules_warm.json")
+    rule_text = gen.traffic_rules(traffic)
+    rules = parse_rules(rule_text)
+    rng = np.random.default_rng(20261019)
+    dicts = [gen.Dict(*gen.dict_text(rng, batch, traffic["len_weights"])).words
+             for _ in range(3)]
+    planted, used = [], set()
+    for words in dicts:
+        while True:
+            k, w = int(rng.integers(len(rules))), words[int(rng.integers(len(words)))]
+            psk = rules_ref.apply(rule_text[k], w)
+            if k not in used and psk is not None and 8 <= len(psk) <= 63:
+                break
+        used.add(k)
+        planted.append(psk)
+    essid = b"pb-rules-resume"
+    lines = [tfx.make_eapol_line(planted[0], essid, keyver=2, seed="rr-k2"),
+             tfx.make_pmkid_line(planted[1], essid, seed="rr-pmkid"),
+             tfx.make_eapol_line(planted[2], essid, keyver=1, seed="rr-k1"),
+             tfx.make_eapol_line(b"uncracked net #4", essid, keyver=3, seed="rr-k3")]
+    units = [u for words in dicts for u in _gz_dict(tmp_path, words)]
+    cache = DictCache(str(tmp_path / "dc"), registry=MetricsRegistry())
+    for (_, dhash), words in zip(units, dicts):
+        _, writer = cache.entry(dhash, rules=True)
+        writer.add_many(words)
+        assert writer.commit()
+
+    pairs = batch * len(rules)
+    for skip, want in ((0, 0), (pairs, 1)):
+        eng = tm.M22000Engine(lines, batch_size=batch, device=cuda_device)
+        reports = []
+        founds = eng.crack_rules_blocks(
+            RulesFeedSource(units, batch, cache=cache), rules, skip=skip,
+            on_batch=lambda c, f: reports.append((c, len(f))))
+        assert sorted((f.line.raw, f.psk) for f in founds) == sorted(
+            zip(lines[want:3], planted[want:]))
+        for f in founds:
+            assert ref.check_psk(f.line.raw, f.psk, eng.nc)
+            assert f.pmk == hashlib.pbkdf2_hmac("sha1", f.psk, essid, 4096, 32)
+        assert sum(c for c, _ in reports) == 3 * pairs - skip
+        assert sum(n for _, n in reports) == 3 - want
+
+
+@pytest.mark.gpu
 def test_server_precrack_batcher_on_the_card(cuda_device):  # noqa: F811
     """The server's ``PmkBatcher`` on ``cuda:0`` (``device="auto"``): one K1
     launch a wave at the fused widths, hashlib-exact PMKs with duplicates

@@ -165,6 +165,22 @@ def test_slice_flat_crack_rules_equals_single_process_and_jax(slice_results, _ha
     assert sum(c for c, _ in res["log"]) == len(W.rules_words()) * len(rules) - 22
 
 
+def test_slice_rules_k1_columns_add_up_to_one_process(slice_results, _hashlib_pmks):
+    """The rules seam's K1 column counter in a slice: each process counts
+    the columns it launches and the candidates in its own rows (the last
+    base block's rows all lie in process 0's half), and the two add up to
+    one process's counts over the same global batches and skip."""
+    from dwpa_tpu_torch.obs import MetricsRegistry
+
+    reg = MetricsRegistry()
+    tm.M22000Engine(W.rules_lines(tfx), batch_size=2 * W.BATCH, device=CPU).crack_rules(
+        iter(W.rules_words()), parse_rules(W.RULES), skip=22, registry=reg)
+    cols = [res["rules_columns"] for res in slice_results]
+    assert cols[0][0] > cols[1][0] > 0
+    assert [cols[0][i] + cols[1][i] for i in (0, 1)] == [
+        reg.value("dwpa_rules_k1_columns_total", fill=f) for f in ("candidate", "pad")]
+
+
 def test_slice_mask_shares_equal_single_process(slice_results, _hashlib_pmks):
     """A mask whose every block each process generates half of: the
     founds (in both processes' shares and the short last block) equal the

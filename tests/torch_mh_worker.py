@@ -108,9 +108,12 @@ def engine_paths(pid):
 
     eng = tm.M22000Engine(rules_lines(tfx), batch_size=BATCH, device="cpu")
     log = []
+    rreg = MetricsRegistry()
     founds = eng.crack_rules(iter(rules_words()), parse_rules(RULES),
-                             on_batch=log_into(log), skip=22)
+                             on_batch=log_into(log), skip=22, registry=rreg)
     out["rules"] = {"founds": keys(founds), "log": log}
+    out["rules_columns"] = [rreg.value("dwpa_rules_k1_columns_total", fill=f)
+                            for f in ("candidate", "pad")]
 
     eng = tm.M22000Engine(mask_lines(tfx), batch_size=BATCH, device="cpu")
     log = []
