@@ -509,7 +509,8 @@ class _RulesCtx:
             "dwpa_rules_k1_columns_total",
             "K1 columns this process launched for the rules seam, by fill "
             "(candidate = the column carries a (word, rule) pair or a "
-            "valid host-tail candidate, pad = padding to the batch)")
+            "valid host-tail candidate, pad = a packed device column whose "
+            "pair the host expands, or a host-tail batch's padding)")
         self.m_cols_cand = cols.labels(fill="candidate")
         self.m_cols_pad = cols.labels(fill="pad")
 
@@ -1712,6 +1713,7 @@ class M22000Engine:
                 # slice's processes); this process runs rows [lo, hi).
                 cap = max(gbatch, -(-nplain // nproc) * nproc)
                 lo, hi = pid * (cap // nproc), (pid + 1) * (cap // nproc)
+                rows_mine = max(0, min(hi, nplain) - lo)  # real rows of the slice
                 for c0 in range(0, len(dev_rules), RULES_CHUNK):
                     chunk = dev_rules[c0:c0 + RULES_CHUNK]
                     overflow = overflow_mine = 0
@@ -1725,7 +1727,7 @@ class M22000Engine:
                             overflow_mine += int(hostneed[lo:hi].sum())
                     expanded = nplain * len(chunk) - overflow
                     # the expanded pairs in this process's rows
-                    mine = len(chunk) * max(0, min(hi, nplain) - lo) - overflow_mine
+                    mine = len(chunk) * rows_mine - overflow_mine
                     plan.append((chunk, expanded, account(expanded), mine))
             if any(rep for _, _, rep, _ in plan):
                 t0 = time.perf_counter()
@@ -1747,10 +1749,11 @@ class M22000Engine:
                 lens_dev = self._h2d(np.ascontiguousarray(lens_pad[lo:hi]))
                 self.stage_times["prepare"] += time.perf_counter() - t0
         if base_dev is not None:
-            # Chunked fused dispatch: each chunk runs expand + PBKDF2 +
-            # verify per rule, per group, with ONE hits gate.  Nothing is
-            # compiled per shape, so a short last chunk is stacked at its
-            # own length instead of being padded with noop rules.
+            # Chunked fused dispatch: each chunk expands its rules over
+            # the slice's real rows and runs PBKDF2 + verify over the
+            # packed candidates, per group, with ONE hits gate.  Nothing
+            # is compiled per shape, so a short last chunk is stacked at
+            # its own length instead of being padded with noop rules.
             for chunk, expanded, report, mine in plan:
                 if not self.groups:
                     break
@@ -1760,12 +1763,13 @@ class M22000Engine:
                 pws = [_RuleWords(plain, r) for r, _ in chunk]
                 with self._span("engine:dispatch") as sp:
                     outs = [(self._full[essid],
-                             self._rules_step_for(essid)(base_dev, lens_dev, stack))
+                             self._rules_step_for(essid)(base_dev, lens_dev, stack,
+                                                         rows_mine))
                             for essid in list(self.groups)]
                     gate = self._arm_gate([out[0] for _, out in outs])
                 self.stage_times["dispatch"] += sp.seconds
                 ctx.m_device.inc(expanded)
-                ctx.launched(len(outs), cap // nproc * len(chunk), mine)
+                ctx.launched(len(outs), rows_mine * len(chunk), mine)
                 push(_Batch(pws, nplain, outs, gate, b_shard=cap // nproc), report)
         # Host-expanded tail: unsupported rules over plain words, plus the
         # per-(word, rule) fallbacks collected above.  ``consumed`` counts

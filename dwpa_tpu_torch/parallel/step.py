@@ -222,31 +222,38 @@ def mix_step(pmk_miss, cached, idx):
 RULES_CHUNK = 8
 
 
-def _pack_bits(any_b):
-    """bool[B] -> int32[ceil(B/32)] with bit b of word b>>5 = column b (the
+def _pack_bits(any_b, width):
+    """bool[R, C] -> int32[R, ceil(width/32)] with bit c of word c>>5 of row
+    r = column c of row r, 0 for the columns from C to ``width`` (the
     uint32 words of the JAX step, carried as int32)."""
-    pad = (-any_b.shape[0]) % 32
+    pad = -(-width // 32) * 32 - any_b.shape[1]
     if pad:
-        any_b = torch.cat([any_b, any_b.new_zeros(pad)])
+        any_b = torch.cat([any_b, any_b.new_zeros((any_b.shape[0], pad))], dim=1)
     weights = torch.ones(32, dtype=torch.int64, device=any_b.device) << torch.arange(
         32, dtype=torch.int64, device=any_b.device)
-    words = (any_b.reshape(-1, 32).to(torch.int64) * weights).sum(dim=1)
+    words = (any_b.reshape(any_b.shape[0], -1, 32).to(torch.int64) * weights).sum(dim=2)
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 def build_rules_step(nets, salt1, salt2, device):
     """The fused rules crack step for one ESSID group on ``device``.
 
-    Returns ``step(base int32[B, 16], lens int32[B], steps int32[R, S, 3])
-    -> (hits, bits)``: each of the R rules mangles the uploaded base batch
-    on the device (``rules.device``), feeds PBKDF2 (``m._pmk_impl``: K1 on
-    a CUDA batch) and every net's verify, and one int32 scalar ``hits``
-    counts the chunk's matches — the host's only sync on an all-miss
-    chunk.  ``bits`` int32[R, ceil(B/32)] is the bit-packed any-net
-    match mask of each rule (bit b of word b>>5 = column b); the engine
-    re-derives the net, NC delta and PMK of the rare hit columns with the
-    host oracle.  ``steps`` is host data: the rule programs drive a Python
-    loop of torch ops, so nothing is built per rule or per ESSID.
+    Returns ``step(base int32[B, 16], lens int32[B], steps int32[R, S, 3],
+    n=B) -> (hits, bits)``: each of the R rules mangles the first ``n``
+    rows of the uploaded base batch, the rows that carry a base word, on
+    the device (``rules.device``).  The R outputs are laid rule-major
+    into R·n candidate columns, which PBKDF2 (``m._pmk_impl``: K1 on a
+    CUDA batch) and every net's verify take in launches of at most B
+    columns, all full but the last: a short block costs the launches its
+    candidates fill, not one a rule, and a full block (``n == B``) one a
+    rule as before.  One int32 scalar ``hits`` counts the chunk's
+    matches — the host's only sync on an all-miss chunk.  ``bits``
+    int32[R, ceil(B/32)] is the bit-packed any-net match mask of each
+    rule (bit b of word b>>5 = base row b; the pad rows past ``n`` read
+    0); the engine re-derives the net, NC delta and PMK of the rare hit
+    columns with the host oracle.  ``steps`` is host data: the rule
+    programs drive a Python loop of torch ops, so nothing is built per
+    rule or per ESSID.
     """
     from ..rules.device import expand_bytes, repack, unpack
 
@@ -259,22 +266,24 @@ def build_rules_step(nets, salt1, salt2, device):
         parts.append((_KINDS[kind][2], static, mask, _part_consts(kind, static, group)))
     s1, s2 = to_torch(salt1, device), to_torch(salt2, device)
 
-    def step(base, lens, steps):
+    def step(base, lens, steps, n=None):
         steps = np.asarray(steps)
-        words = unpack(base)
+        B = base.shape[0]
+        n = B if n is None else n
         hits = torch.zeros((), dtype=torch.int32, device=base.device)
-        bits = []
-        for rsteps in steps:
-            b, _, valid = expand_bytes(words, lens, rsteps)
-            pmk = pmk_step(repack(b, valid), s1, s2)
-            any_b = None
-            for match, static, mask, consts in parts:
-                fnd = match(pmk, static, *consts) & mask[:, None, None]
-                hits = hits + fnd.sum(dtype=torch.int32)
-                a = fnd.any(dim=1).any(dim=0)  # [B]
-                any_b = a if any_b is None else any_b | a
-            bits.append(_pack_bits(any_b))
-        return hits, torch.stack(bits)
+        any_rn = torch.zeros((len(steps), n), dtype=torch.bool, device=base.device)
+        if n:
+            words, lens = unpack(base[:n]), lens[:n]
+            cols = torch.cat([repack(b, valid) for b, _, valid in
+                              (expand_bytes(words, lens, rsteps) for rsteps in steps)])
+            anys = any_rn.view(-1)
+            for c0 in range(0, cols.shape[0], B):
+                pmk = pmk_step(cols[c0:c0 + B], s1, s2)
+                for match, static, mask, consts in parts:
+                    fnd = match(pmk, static, *consts) & mask[:, None, None]
+                    hits = hits + fnd.sum(dtype=torch.int32)
+                    anys[c0:c0 + B] |= fnd.any(dim=1).any(dim=0)
+        return hits, _pack_bits(any_rn, B)
 
     return step
 

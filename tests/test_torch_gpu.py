@@ -410,16 +410,18 @@ def test_warm_crack_rules_blocks_on_the_card(cuda_device, tmp_path):  # noqa: F8
 
 
 @pytest.mark.gpu
-def test_rules_block_at_the_cells_shape(cuda_device, tmp_path):  # noqa: F811
+def test_rules_block_at_the_cells_shape(cuda_device, tmp_path, monkeypatch):  # noqa: F811
     """The rules cell's shape (``unit5.rules_warm``): one warm ``.rbase``
     block of 8,192 seeded base words of the rules mix's lengths, at batch
     131,072, with unit5's five nets (one of each verify kind), under all
     105 rules of ``wpa.rule``.  The finds are the ``rule(word)`` PSKs
     planted through four distinct rules, each cracking its net by the
     benchmark's hashlib reference; the fifth net stays uncracked; K1 runs
-    once a rule, and once more for the host tail of overflow pairs only
-    where one of them is a valid PSK (in the mix they all come out longer
-    than 63 bytes); the K1 column counter reads what the plan of
+    once a chunk of 8 rules, over the chunk's 8 x 8,192 packed candidates
+    (13 launches of 65,536 columns and one of 8,192 for the last rule),
+    and once more for the host tail of overflow pairs only where one of
+    them is a valid PSK (in the mix they all come out longer than 63
+    bytes); the K1 column counter reads what the plan of
     ``simulate_lens`` predicts."""
     from port_bench import gen, rules_ref
     from port_bench import reference as ref
@@ -457,6 +459,13 @@ def test_rules_block_at_the_cells_shape(cuda_device, tmp_path):  # noqa: F811
     writer.add_many(words)
     assert writer.commit()
 
+    widths, pmk_impl = [], tm._pmk_impl
+
+    def pmk(pw, *args):
+        widths.append(pw.shape[0])
+        return pmk_impl(pw, *args)
+
+    monkeypatch.setattr(tm, "_pmk_impl", pmk)
     eng = tm.M22000Engine(lines, batch_size=batch, device=cuda_device)
     before = pbkdf2_cuda.LAUNCHES
     founds = eng.crack_rules_blocks(RulesFeedSource(units, batch, cache=cache), rules,
@@ -479,11 +488,12 @@ def test_rules_block_at_the_cells_shape(cuda_device, tmp_path):  # noqa: F811
     tail = [t for t in tail if t is not None]
     assert 0 < len(tail) < batch
     in_tail = sum(8 <= len(t) <= 63 for t in tail)
-    assert launches == len(rules) + bool(in_tail)
+    assert launches == len(widths) == 14 + bool(in_tail)
+    assert widths[:14] == [8 * len(words)] * 13 + [len(words)]
     assert reg.value("dwpa_rules_device_expanded_total") == expanded
     assert reg.value("dwpa_rules_k1_columns_total", fill="candidate") == expanded + in_tail
     assert reg.value("dwpa_rules_k1_columns_total", fill="pad") == (
-        batch * launches - expanded - in_tail)
+        len(rules) * len(words) + batch * bool(in_tail) - expanded - in_tail)
 
 
 @pytest.mark.gpu

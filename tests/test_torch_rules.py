@@ -8,7 +8,8 @@
 - the numpy half (``encode_rule``, ``step_bucket``, ``simulate_lens``,
   ``stack_rules``) and the copied host interpreter;
 - ``build_rules_step`` against JAX ``build_rules_step`` on a one-device
-  CPU mesh: ``hits`` and the packed ``bits``;
+  CPU mesh: ``hits`` and the packed ``bits``, on a full block and on one
+  with pad rows; its K1 launches over a block's real rows;
 - ``crack_rules_blocks`` against the JAX engine's ``crack_rules`` and
   ``crack_rules_blocks``: the founds and the ``on_batch`` sequences, with
   ``$HEX``/overlong fallback words, an ``@`` purge rule, overflow pairs
@@ -174,6 +175,93 @@ def test_build_rules_step_matches_jax(monkeypatch):
     assert np.array_equal(bits.numpy().view(np.uint32), np.asarray(jbits))
     hit_cols = np.unpackbits(bits.numpy().view(np.uint8), axis=1, bitorder="little")
     assert hit_cols[6, 41] and hit_cols[0, 63] and hit_cols[2, 63] and hit_cols.sum() == 3
+
+
+SHORT_PSK = b"12345678"     # an empty row through '$1 $2 $3 $4 $5 $6 $7 $8'
+SHORT_RULES = STEP_RULES + ["$1 $2 $3 $4 $5 $6 $7 $8"]
+
+
+def _short_block(n, B=64):
+    """A base block of B rows whose first ``n`` carry a word: the packed
+    rows and lengths, zero past ``n`` as the engine pads a block."""
+    words = [b"stepjunk%03d" % i for i in range(n)]
+    rows = np.zeros((B, 16), np.uint32)
+    lens = np.zeros(B, np.int32)
+    if n:
+        rows[:n] = bo.pack_passwords_be(words)
+        lens[:n] = [len(w) for w in words]
+    return words, rows, lens
+
+
+def test_build_rules_step_short_block_matches_jax(monkeypatch):
+    """B = 64 with 20 real rows, the 8 step rules and '$1 ... $8', and a
+    PMKID net whose PSK is 12345678.  The PSK is base row 12 through rule
+    6 and row 19 itself through rules 0 and 2; row 7 is an empty word, so
+    the last rule cracks the new net at its column 7, as it would at every
+    pad row were the pads hashed.  JAX's step on the padded block hashes
+    them: ``bits[:, :20]`` equal its bits there, every pad bit is 0, and
+    ``hits`` is JAX's less its 44 pad matches."""
+    monkeypatch.setattr(tm, "_pmk_impl", hashlib_pmk)
+    n, B = 20, 64
+    _, rows, lens = _short_block(n, B)
+    fill = {12: b"stepword77", 19: STEP_PSK, 7: b""}
+    rows[list(fill)] = bo.pack_passwords_be(list(fill.values()))
+    lens[list(fill)] = [len(w) for w in fill.values()]
+    stack = jdev.stack_rules([jdev.encode_rule(jparse_rule(t)) for t in SHORT_RULES],
+                             len(SHORT_RULES))
+    lines = _step_lines() + [jtfx.make_pmkid_line(SHORT_PSK, STEP_ESSID, seed="rs-p3")]
+    s1, s2 = jm.essid_salt_blocks(STEP_ESSID)
+    mesh = default_mesh(devices=jax.devices()[:1])
+    jstep = jax_build_rules_step(mesh, [jm.prep_net(jhl.parse(ln)) for ln in lines], s1, s2)
+    jhits, jbits = jstep(jax.device_put(rows), jax.device_put(lens), stack)
+    step = build_rules_step([tm.prep_net(tm.hl.parse(ln), device=CPU) for ln in lines],
+                            s1, s2, CPU)
+    hits, bits = step(torch.from_numpy(rows.view(np.int32)), torch.from_numpy(lens), stack, n)
+    assert bits.dtype == torch.int32 and bits.shape == (len(SHORT_RULES), 2)
+    cols = np.unpackbits(bits.numpy().view(np.uint8), axis=1, bitorder="little")
+    jcols = np.unpackbits(np.asarray(jbits).view(np.uint8), axis=1, bitorder="little")
+    assert np.array_equal(cols[:, :n], jcols[:, :n])
+    assert not cols[:, n:].any()
+    assert jcols[8, n:].all() and jcols[:, n:].sum() == B - n      # JAX hashed the pads
+    assert cols[6, 12] and cols[0, 19] and cols[2, 19] and cols[8, 7] and cols.sum() == 4
+    assert 0 < int(hits) == int(np.asarray(jhits)) - (B - n)
+
+
+@pytest.mark.parametrize("B, n, R, widths", [
+    (64, 64, 8, [64] * 8),
+    (64, 8, 8, [64]),
+    (64, 24, 8, [64] * 3),
+    (64, 40, 8, [64] * 5),
+    (64, 20, 3, [60]),
+    (64, 0, 8, []),
+])
+def test_build_rules_step_packs_real_rows_into_launches(monkeypatch, B, n, R, widths):
+    """The step's K1 launches: the R rules over the ``n`` real rows, laid
+    rule-major into R·n columns and cut into launches of at most B, all
+    full but the last; an empty block launches nothing.  What each launch
+    hashes is the rules' expansions of the real rows, in that order; the
+    bits keep their [R, B/32] shape, and a PBKDF2 that cracks nothing
+    leaves ``hits`` 0 and every bit 0."""
+    launches = []
+
+    def pmk(pw, salt1, salt2):
+        launches.append(pw.clone())
+        return torch.zeros((8, pw.shape[0]), dtype=torch.int32)
+
+    monkeypatch.setattr(tm, "_pmk_impl", pmk)
+    _, rows, lens = _short_block(n, B)
+    encoded = [tdev.encode_rule(parse_rule(t)) for t in STEP_RULES[:R]]
+    stack = tdev.stack_rules(encoded, R)
+    s1, s2 = jm.essid_salt_blocks(STEP_ESSID)
+    step = build_rules_step([tm.prep_net(tm.hl.parse(ln), device=CPU) for ln in _step_lines()],
+                            s1, s2, CPU)
+    base, blens = torch.from_numpy(rows.view(np.int32)), torch.from_numpy(lens)
+    hits, bits = step(base, blens, stack, n)
+    assert [pw.shape[0] for pw in launches] == widths
+    assert int(hits) == 0 and bits.shape == (R, B // 32) and not bits.any()
+    if n:
+        packed = torch.cat([tdev.expand(base[:n], blens[:n], s) for s in stack])
+        assert torch.equal(torch.cat(launches), packed)
 
 
 # -- the engine --------------------------------------------------------------

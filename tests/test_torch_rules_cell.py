@@ -36,8 +36,10 @@ PSK = b"Bravo456"                                   # 'bravo456' through 'c'
 
 @pytest.mark.parametrize("essids", [1, 2])
 def test_k1_column_counter_is_exact(monkeypatch, essids):
-    """Device chunk 1 (8 rules x 8 columns): 4 x 8 pairs less the ``d``
-    overflow, 31 candidates, 33 pad; chunk 2 (``^x``): 4 and 4.  The host
+    """Device chunk 1 (8 rules over the block's 4 real rows, packed into 32
+    columns, four launches of the batch's 8): 4 x 8 pairs less the ``d``
+    overflow, 31 candidates, 1 pad; chunk 2 (``^x``): one launch of 4
+    columns, 4 candidates.  The host
     tail: 15 pairs (the overlong base x 10 rules, the overflow pair, 4
     ``@a`` purges) flush at 8 outputs; the first 8 are all overlong, so
     that batch launches nothing, and the last 7 hold one valid word
@@ -66,10 +68,11 @@ def test_k1_column_counter_is_exact(monkeypatch, essids):
                                     on_batch=lambda c, f: reports.append((c, len(f))))
     assert len(RULES) - 1 == RULES_CHUNK + 1
     assert [f.psk for f in founds] == [PSK] and reports == [(len(WORDS) * len(RULES), 1)]
-    assert launched == [(essids, 64, 31), (essids, 8, 4), (essids, 8, 1)]
+    assert launched == [(essids, 32, 31), (essids, 4, 4), (essids, 8, 1)]
     assert reg.value("dwpa_rules_k1_columns_total", fill="candidate") == essids * (31 + 4 + 1)
-    assert reg.value("dwpa_rules_k1_columns_total", fill="pad") == essids * (33 + 4 + 7)
-    assert sum(calls) == essids * (64 + 8 + 8)      # one call a rule and group, one a tail batch
+    assert reg.value("dwpa_rules_k1_columns_total", fill="pad") == essids * (1 + 0 + 7)
+    # per chunk and group, the packed columns in launches of the batch; one a tail batch
+    assert calls == [8] * 4 * essids + [4] * essids + [8] * essids
     assert reg.value("dwpa_rules_device_expanded_total") == 31 + 4
     assert reg.value("dwpa_rules_host_fallback_total", reason="overflow") == 10 + 1
 
