@@ -1294,7 +1294,7 @@ def phase_mask_client(card):
     first mask checkpoint and a fresh client's replay.  Returns K1's
     launches in the first run()."""
     from dwpa_tpu_torch import native
-    from dwpa_tpu_torch.feed import CandidateFeed
+    from dwpa_tpu_torch.client import main as client_main
     from dwpa_tpu_torch.models.m22000 import M22000Engine
     from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
 
@@ -1305,14 +1305,18 @@ def phase_mask_client(card):
     phase = "phase 8c"
     total = sum(s["limit"] for s in MASK_SHARDS)
 
-    # every mask pass (a crack_blocks call on a block generator, not a
-    # feed) is timed and its uploads, native packs and K1 launches counted
-    mask_io = []
+    # every mask pass (a crack_blocks call on the client's mask_blocks
+    # stream) is timed and its uploads, native packs and K1 launches counted
+    mask_io, mask_streams = [], []
     h2d, restore_h2d = count_h2d(M22000Engine)
-    real_cb = M22000Engine.crack_blocks
+    real_cb, real_mb = M22000Engine.crack_blocks, client_main.mask_blocks
+
+    def tagged_mask_blocks(*args, **kwargs):
+        mask_streams.append(real_mb(*args, **kwargs))
+        return mask_streams[-1]
 
     def crack_blocks(self, blocks, on_batch=None):
-        if isinstance(blocks, CandidateFeed):
+        if not any(blocks is s for s in mask_streams):
             return real_cb(self, blocks, on_batch)
         before = (h2d[0], native.CALLS, pbkdf2_cuda.LAUNCHES)
         out = real_cb(self, blocks, on_batch)
@@ -1320,7 +1324,7 @@ def phase_mask_client(card):
                         pbkdf2_cuda.LAUNCHES - before[2]))
         return out
 
-    M22000Engine.crack_blocks = crack_blocks
+    M22000Engine.crack_blocks, client_main.mask_blocks = crack_blocks, tagged_mask_blocks
     try:
         server = Server(None, None)
         client, reg = make_client(server, CLIENT_DIR / "mask", 1, "mask unit", phase)
@@ -1388,7 +1392,7 @@ def phase_mask_client(card):
               f"{progress['mask_done']} candidates, submitted {len(server.verdicts[-1])} PSKs and "
               f"was accepted [{card}]", flush=True)
     finally:
-        M22000Engine.crack_blocks = real_cb
+        M22000Engine.crack_blocks, client_main.mask_blocks = real_cb, real_mb
         restore_h2d()
     shutil.rmtree(CLIENT_DIR, ignore_errors=True)
     return launches

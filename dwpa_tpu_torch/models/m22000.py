@@ -47,6 +47,7 @@ Layout of the device work:
 
 import contextlib
 import functools
+import itertools
 import struct
 import threading
 import time
@@ -639,8 +640,11 @@ class _Batch:
     """A dispatched batch as ``_collect`` takes it: the hit columns'
     words ``pws`` and their count ``nvalid``, ``(group, step output)``
     for each live group in ``outs``, its hits ``gate``; a rules chunk's
-    per-process column count ``b_shard``, a PMK-store block's
-    ``writeback`` list of ``(essid, miss PMKs, miss words, nmiss)``."""
+    per-process column count ``b_shard``; a PMK-store batch's
+    ``writeback`` list of ``(essid, miss PMKs, lo, n, miss words)``
+    (new PMKs in columns ``[lo, lo + n)``); a fused batch's ``windows``,
+    ``(words view, lo, hi)`` a group (else ``(pws, 0, nvalid)``), and the
+    device tensors its launches read, held until collected (``staged``)."""
 
     pws: object
     nvalid: int
@@ -648,6 +652,8 @@ class _Batch:
     gate: _Gate
     b_shard: int = None
     writeback: list = None
+    windows: list = None
+    staged: tuple = None
 
 
 class _Pipeline:
@@ -657,8 +663,9 @@ class _Pipeline:
     finishes the oldest once the depth is exceeded.  Its hits gate waits
     on that batch's own CUDA event (``M22000Engine._gate``), so the
     batches dispatched after it stay queued on the card while the host
-    decodes, reports and stages the next block.  ``on_batch`` fires in
-    stream order.
+    decodes, reports and stages the next block.  ``on_batch(raw,
+    founds)`` fires in stream order with the ``raw`` its batch was
+    pushed with: a candidate count, or ``crack_fused``'s fused batch.
     """
 
     def __init__(self, engine, on_batch=None):
@@ -673,7 +680,7 @@ class _Pipeline:
     def active(self) -> bool:
         return bool(self.pending)
 
-    def push(self, dispatched, raw: int):
+    def push(self, dispatched, raw):
         self.pending.append((dispatched, raw))
         if len(self.pending) > self.engine.PIPELINE_DEPTH:
             self.finish_one()
@@ -1103,7 +1110,7 @@ class M22000Engine:
                 pmk = ent.cached_dev
             else:
                 pmk_miss = step.compute_pmk(ent.miss_dev)
-                writeback.append((essid, pmk_miss, ent.miss_words, ent.nmiss))
+                writeback.append((essid, pmk_miss, 0, ent.nmiss, ent.miss_words))
                 pmk = (pmk_miss if ent.nhit == 0 else
                        mix_step(pmk_miss, ent.cached_dev, ent.idx_dev))
             outs.append((self._full[essid], step.verify(pmk)))
@@ -1196,29 +1203,22 @@ class M22000Engine:
         same compact matrix ``found[N, V, K]``, ``pmk_col(k)`` and
         ``psks[k]``, so every engine prunes the same nets.
         """
-        found = found_dev.cpu().numpy().copy()  # writable, not the step's
-        self._fetched(found)
-        found[:, :, nvalid:] = False
+        found, cols, pmk_cols = self._fetch_hits(found_dev, pmk_dev, 0, nvalid)
         n, v, width = found.shape
-        cols = np.flatnonzero(found.any(axis=(0, 1)))
         meta = allgather_host(np.asarray([len(cols), width], np.int64))
         base = getattr(pws, "col0", None)
         if base is None:
             base = process_index() * int(meta[:, 1].max())
         rowlen = 5 + MAX_PSK_LEN + 32 + n * v   # col(4) len(1) psk pmk bits
         ex = np.zeros((max(1, int(meta[:, 0].max())), rowlen), np.uint8)
-        if len(cols):
-            idx = torch.from_numpy(cols).to(pmk_dev.device)
-            pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
-            self._fetched(pmk_cols)
-            for i, b in enumerate(cols):
-                psk = pws[int(b)]
-                ex[i, 0:4] = np.frombuffer(struct.pack("<I", base + int(b)), np.uint8)
-                ex[i, 4] = len(psk)
-                ex[i, 5:5 + len(psk)] = np.frombuffer(psk, np.uint8)
-                o = 5 + MAX_PSK_LEN
-                ex[i, o:o + 32] = pmk_cols[:, i].astype("<u4").view(np.uint8)
-                ex[i, o + 32:] = found[:, :, b].reshape(-1)
+        for i, b in enumerate(cols):
+            psk = pws[int(b)]
+            ex[i, 0:4] = np.frombuffer(struct.pack("<I", base + int(b)), np.uint8)
+            ex[i, 4] = len(psk)
+            ex[i, 5:5 + len(psk)] = np.frombuffer(psk, np.uint8)
+            o = 5 + MAX_PSK_LEN
+            ex[i, o:o + 32] = pmk_cols[:, i].astype("<u4").view(np.uint8)
+            ex[i, o + 32:] = found[:, :, b].reshape(-1)
         allex = allgather_host(ex)
         rows = np.concatenate([part[:int(c)] for part, c in zip(allex, meta[:, 0])])
         gcols = rows[:, 0:4].copy().view("<u4").reshape(-1)
@@ -1243,11 +1243,12 @@ class M22000Engine:
             founds = []
             live = {id(n.line) for g in self.groups.values() for n in g}
             hits = self._gate(rec.gate)
+            windows = rec.windows or [(rec.pws, 0, rec.nvalid)] * len(rec.outs)
             with self._fetching(rec.gate):
-                for h, (group, out) in zip(hits, rec.outs):
+                for h, (group, out), window in zip(hits, rec.outs, windows):
                     if h:
                         with self._span("engine:decode"):
-                            founds += self._decode_hits(group, out, rec.pws, rec.nvalid,
+                            founds += self._decode_hits(group, out, *window,
                                                         rec.b_shard, live)
                 for f in founds:
                     self.remove(f)
@@ -1255,38 +1256,50 @@ class M22000Engine:
                     # PMK-store write-back: the one place newly derived
                     # PMKs leave the device outside a find.  It runs on
                     # the consumer thread after the hits gate, one store
-                    # call per batch; the [8, nmiss] miss matrices are an
+                    # call per batch; the [8, n] miss matrices are an
                     # intentional per-batch D2H — they turn the NEXT
                     # unit's repeats into hits.
                     self.pmk_store.put_many(
-                        (essid, words, to_numpy(pmk[:, :nmiss]))
-                        for essid, pmk, words, nmiss in rec.writeback)
+                        (essid, words, to_numpy(pmk[:, lo:lo + n]))
+                        for essid, pmk, lo, n, words in rec.writeback)
         self.stage_times["collect"] += sp.seconds
         return founds
 
-    def _decode_hits(self, group, out, pws, nvalid, b_shard, live) -> list:
-        """The founds of one group the hits gate flagged: its found
-        matrix (a rules chunk's bit mask) and hit PMK columns fetched,
-        in a slice exchanged, then decoded and checked by the oracle."""
+    def _decode_hits(self, group, out, pws, lo, hi, b_shard, live) -> list:
+        """The founds of one group the hits gate flagged in its columns
+        ``[lo, hi)``: its found matrix (a rules chunk's bit mask) and hit
+        PMK columns fetched, in a slice exchanged, then decoded and
+        checked by the oracle."""
         if len(out) == 2:  # fused rules chunk: (hits, packed found-any)
-            return self._decode_rules(group, out[1], pws, nvalid, b_shard, live)
+            return self._decode_rules(group, out[1], pws, hi, b_shard, live)
         _, found_dev, pmk_dev = out
         if process_count() > 1:
             found, pmk_col, psks = self._gather_find_data(
-                found_dev, pmk_dev, pws, nvalid)
+                found_dev, pmk_dev, pws, hi)
             return self._decode(group, found, pmk_col, psks, live)
-        found = found_dev.cpu().numpy().copy()  # writable, not the step's
+        found, cols, pmk_cols = self._fetch_hits(found_dev, pmk_dev, lo, hi)
+        if pmk_cols is None:
+            return []
+        slot = {int(b): i for i, b in enumerate(cols)}
+        return self._decode(group, found, lambda b: pmk_cols[:, slot[b]], pws, live)
+
+    def _fetch_hits(self, found_dev, pmk_dev, lo, hi):
+        """A group's found matrix ``[N, V, B]`` copied to the host
+        (writable, not the step's), every column outside ``[lo, hi)``
+        masked, its hit columns, and their PMK columns ``uint32[8, K]``
+        (None without a hit): only the hit columns' PMKs cross to the
+        host.  Both copies count in ``dwpa_engine_found_fetch_bytes_total``."""
+        found = found_dev.cpu().numpy().copy()
         self._fetched(found)
-        found[:, :, nvalid:] = False
+        found[:, :, :lo] = False
+        found[:, :, hi:] = False
         cols = np.flatnonzero(found.any(axis=(0, 1)))
         if not len(cols):
-            return []
-        # Only the hit columns' PMKs cross to the host.
+            return found, cols, None
         idx = torch.from_numpy(cols).to(pmk_dev.device)
         pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
         self._fetched(pmk_cols)
-        slot = {int(b): i for i, b in enumerate(cols)}
-        return self._decode(group, found, lambda b: pmk_cols[:, slot[b]], pws, live)
+        return found, cols, pmk_cols
 
     def crack_batch(self, passwords) -> list:
         """One batch of candidate byte-strings -> list[Found]."""
@@ -1300,50 +1313,35 @@ class M22000Engine:
     PIPELINE_DEPTH = 3
 
     def crack(self, candidates, on_batch=None) -> list:
-        """Stream candidates in engine-sized batches until exhausted.
+        """Stream candidates in engine-sized batches until exhausted: a
+        front over ``crack_blocks`` (``on_batch(consumed, founds)`` after
+        each batch, in stream order).  In a slice each process passes its
+        own shard.  The blocks are ``feed.framing.frame_blocks``' at one
+        process, cut with ``islice``: ``frame_blocks``' per-word shard
+        arithmetic made this path host-bound (2.3-2.8x on an H100)."""
+        from ..feed.framing import Block
 
-        Software pipeline (``_Pipeline``), ``PIPELINE_DEPTH + 1`` deep:
-        while the device works on batch N, the host packs and enqueues the
-        next ``PIPELINE_DEPTH`` batches.  Batch N's hits gate waits on
-        N's own CUDA event, ``PIPELINE_DEPTH`` batches behind the
-        dispatch frontier, so those batches stay queued on the card
-        while the host decodes N, reports it and packs the next batch.
+        words = iter(candidates)
 
-        ``on_batch(consumed, founds)`` is invoked after each batch
-        completes, in stream order (consumed = raw candidates in that
-        batch, founds = its Found list).
-        """
-        pipe = _Pipeline(self, on_batch)
-        batch = []
+        def blocks():
+            offset = 0
+            while batch := list(itertools.islice(words, self.batch_size)):
+                yield Block(offset=offset, count=len(batch), words=batch)
+                offset += len(batch)
 
-        def submit(b):
-            prep = self._prepare(b)  # async H2D starts here
-            if prep is not None and self.groups:
-                pipe.push(self._dispatch(prep), len(b))
-            else:
-                pipe.skip(len(b))
-
-        for pw in candidates:
-            if not self.groups and not pipe.active:
-                break
-            batch.append(pw)
-            if len(batch) == self.batch_size:
-                submit(batch)
-                batch = []
-        if batch:
-            submit(batch)
-        pipe.drain()
-        return pipe.founds
+        return self.crack_blocks(blocks(), on_batch)
 
     def crack_blocks(self, blocks, on_batch=None) -> list:
         """Crack a framed candidate-block stream (``dwpa_tpu_torch.feed``).
 
-        The feed-era twin of ``crack``: instead of slicing a flat word
-        iterable itself, the engine consumes ``Block``s whose
-        ``(offset, count)`` framing was fixed by the producer — so
-        ``on_batch(consumed, founds)`` reports each block's global
-        candidate coverage (its count), which is what the client's
-        resume checkpoint needs.
+        The engine consumes ``Block``s whose ``(offset, count)`` framing
+        was fixed by the producer, so ``on_batch(consumed, founds)``
+        reports each block's global candidate coverage (its count),
+        which is what the client's resume checkpoint needs.
+
+        Software pipeline (``_Pipeline``), ``PIPELINE_DEPTH + 1`` deep:
+        block N's hits gate waits on N's own CUDA event,
+        ``PIPELINE_DEPTH`` blocks behind the dispatch frontier.
 
         Staging is double-buffered (``feed.staging.DeviceStager``): the
         next block's candidate H2D is enqueued on a side stream before
@@ -1459,36 +1457,41 @@ class M22000Engine:
 
         ``on_batch(essid, consumed, founds)`` fires per PART in stream
         order — same at-least-once checkpoint seam as ``crack_blocks``,
-        keyed by ESSID so a multi-unit caller can demux.  ``on_fused``
-        (optional) receives each ``FusedBatch`` before dispatch — the
-        executor's fill/units-per-batch metrics hook.  ``tracer``
-        (optional ``obs.spans.SpanTracer``) wraps packing in
-        ``sched:fuse`` and sync/demux in ``sched:demux`` spans.
+        keyed by ESSID so a multi-unit caller can demux.  A found
+        belongs to the part of its net's ESSID: a batch holds one part
+        an ESSID.  ``on_fused`` (optional) receives each ``FusedBatch``
+        before dispatch — the executor's fill/units-per-batch metrics
+        hook.  ``tracer`` (optional ``obs.spans.SpanTracer``) wraps
+        packing in ``sched:fuse`` and each batch's demux in
+        ``sched:demux`` spans.
         """
-        import collections
-
         from ..sched.fuse import fuse_units
 
         if process_count() > 1:
             raise RuntimeError(
                 "unit fusion is single-process only (a multi-process slice "
                 "takes the serial per-unit path)")
-        pipe_founds = []
-        inflight = collections.deque()  # dispatched records, oldest first
+
+        def span(name):
+            return tracer.span(name) if tracer else contextlib.nullcontext()
+
+        def demux(fb, founds):
+            with span("sched:demux"):
+                if on_batch is not None:
+                    for u in fb.units:
+                        on_batch(u.key, u.count,
+                                 [f for f in founds if f.line.essid == u.key])
+
+        pipe = _Pipeline(self, demux)
         pending = []                    # buffered (essid, words, count)
         raw = 0                         # candidate estimate of pending
-
-        def finish_one():
-            fb, outs, wb, gate, _staged = inflight.popleft()
-            pipe_founds.extend(
-                self._collect_fused(fb, outs, wb, gate, on_batch, tracer))
 
         def flush():
             nonlocal pending, raw
             if not pending:
                 return
             parts_now, pending, raw = pending, [], 0
-            with (tracer.span("sched:fuse") if tracer else contextlib.nullcontext()):
+            with span("sched:fuse"):
                 fb = fuse_units(parts_now, self.batch_size, 1, max_units,
                                 store=self.pmk_store, salts=self._salts)
             if on_fused is not None:
@@ -1500,14 +1503,12 @@ class M22000Engine:
                     for u in fb.units:
                         on_batch(u.key, u.count, [])
                 return
-            inflight.append(self._dispatch_fused(fb))
-            if len(inflight) > self.PIPELINE_DEPTH:
-                finish_one()
+            pipe.push(self._dispatch_fused(fb), fb)
 
         for part in parts:
             key, words = part[0], list(part[1])
             count = part[2] if len(part) > 2 else len(words)
-            if not self.groups and not inflight:
+            if not self.groups and not pipe.active:
                 break  # everything cracked; stop consuming the stream
             if key not in self.groups:
                 # Unit for an already-cracked (or unknown) ESSID: consume
@@ -1530,25 +1531,25 @@ class M22000Engine:
             pending.append((key, words, count))
             raw += len(words)
         flush()
-        while inflight:
-            finish_one()
-        return pipe_founds
+        pipe.drain()
+        return pipe.founds
 
-    def _dispatch_fused(self, fb):
+    def _dispatch_fused(self, fb) -> _Batch:
         """Launch one fused batch (no host sync): ONE per-lane-salt
         PBKDF2 over the compacted miss lanes (``fused_pmk_step`` — the
         ``unit_id`` gather resolves each lane's salt on the device), the
         ``mix_step`` gather when the PMK store contributed hits, then
         every live unit's verify over the SAME [8, W] PMK matrix.  A
         unit's verify sees other units' lanes too — their PMKs were
-        derived under a different ESSID, so they cannot match (and
-        ``_collect_fused`` masks the columns anyway).  An all-hit batch
-        launches no PBKDF2.  The record holds every staged tensor until
-        ``_collect_fused`` has read the batch's hits gate."""
+        derived under a different ESSID, so they cannot match, and
+        ``_collect`` decodes each unit in its own lane window
+        ``[lo, lo + nvalid)`` anyway.  An all-hit batch launches no
+        PBKDF2.  Each unit's new PMKs are its columns of the miss
+        matrix, written back under its own ESSID."""
         from ..parallel.step import fused_pmk_step, mix_step
 
         with self._span("engine:dispatch") as sp:
-            wb = None
+            writeback = None
             if fb.nmiss == 0 and fb.cached is not None:
                 pmk = self._h2d(fb.cached)
                 staged = (pmk,)
@@ -1557,87 +1558,24 @@ class M22000Engine:
                 staged = tuple(self._h2d(a) for a in (
                     np.ascontiguousarray(fb.miss_rows[:, :w]), fb.unit_id,
                     fb.table1, fb.table2))
-                pmk_miss = fused_pmk_step(*staged)
-                entries = [(u.key, u.mlo, u.nmiss, u.miss_words)
-                           for u in fb.units if u.nmiss]
-                wb = (pmk_miss, entries)
-                pmk = pmk_miss
+                pmk = pmk_miss = fused_pmk_step(*staged)
+                writeback = [(u.key, pmk_miss, u.mlo, u.nmiss, u.miss_words)
+                             for u in fb.units if u.nmiss]
                 if fb.idx is not None:
                     cached, idx = self._h2d(fb.cached), self._h2d(fb.idx)
                     staged += (cached, idx)
                     pmk = mix_step(pmk_miss, cached, idx)
-            outs = []
+            outs, windows = [], []
             for u in fb.units:
                 group = self._full.get(u.key)
                 if group is None:  # group cracked out from under the stream
-                    outs.append((u, None, None))
                     continue
-                outs.append((u, group, self._step_for(u.key).verify(pmk)))
-            gate = self._arm_gate([out[0] for _, _, out in outs if out is not None])
+                outs.append((group, self._step_for(u.key).verify(pmk)))
+                windows.append((_ShiftedWords(u.words, u.lo), u.lo, u.lo + u.nvalid))
+            gate = self._arm_gate([out[0] for _, out in outs])
         self.stage_times["dispatch"] += sp.seconds
-        return fb, outs, wb, gate, staged
-
-    def _collect_fused(self, fb, outs, wb, gate, on_batch, tracer) -> list:
-        """Sync + demux one fused batch: every live unit's hit scalar
-        comes back in ONE read of the batch's hits ``gate`` (``_gate``, as
-        in ``_collect``; the decode and write-back read behind its event,
-        ``_fetching``); a unit with hits has its found matrix masked
-        down to its OWN lane window ``[lo, lo + nvalid)`` before decode
-        (a hit in unit A must never surface as unit B's find — the
-        columns outside the window belong to other units), cracked nets
-        are pruned, new PMKs go back to the store in one ``put_many``,
-        and ``on_batch`` fires per unit in layout order."""
-        with self._span("engine:collect") as sp:
-            founds = []
-            by_unit = {id(u): [] for u, _, _ in outs}
-            live = {id(n.line) for g in self.groups.values() for n in g}
-            with (tracer.span("sched:demux") if tracer else contextlib.nullcontext()):
-                real = [(u, g, out) for u, g, out in outs if out is not None]
-                hits = self._gate(gate)
-                with self._fetching(gate):
-                    for h, (u, group, out) in zip(hits, real):
-                        if h:
-                            with self._span("engine:decode"):
-                                new = self._decode_unit(u, group, out, live)
-                            by_unit[id(u)].extend(new)
-                            founds.extend(new)
-                    for f in founds:
-                        self.remove(f)
-                    if wb is not None and self.pmk_store is not None:
-                        # Store write-back (consumer thread, after the hits
-                        # gate): each unit's slice of the fused miss PMK
-                        # matrix lands under its own ESSID, one store call
-                        # per batch.
-                        pmk_miss, entries = wb
-                        pmk_host = to_numpy(pmk_miss[:, :fb.nmiss])
-                        self.pmk_store.put_many(
-                            (key, miss_words, pmk_host[:, mlo:mlo + nm])
-                            for key, mlo, nm, miss_words in entries)
-            if on_batch is not None:
-                for u in fb.units:
-                    on_batch(u.key, u.count, by_unit[id(u)])
-        self.stage_times["collect"] += sp.seconds
-        return founds
-
-    def _decode_unit(self, u, group, out, live) -> list:
-        """The founds of one fused unit the hits gate flagged: its found
-        matrix masked down to its own lane window ``[lo, lo + nvalid)``
-        (the other columns are other units' candidates and padding),
-        then the hit PMK columns fetched and decoded."""
-        _, found_dev, pmk_dev = out
-        found = found_dev.cpu().numpy().copy()  # writable, not the step's
-        self._fetched(found)
-        found[:, :, :u.lo] = False
-        found[:, :, u.lo + u.nvalid:] = False
-        cols = np.flatnonzero(found.any(axis=(0, 1)))
-        if not len(cols):
-            return []
-        idx = torch.from_numpy(cols).to(pmk_dev.device)
-        pmk_cols = to_numpy(pmk_dev.index_select(1, idx))
-        self._fetched(pmk_cols)
-        slot = {int(b): i for i, b in enumerate(cols)}
-        return self._decode(group, found, lambda b: pmk_cols[:, slot[b]],
-                            _ShiftedWords(u.words, u.lo), live)
+        return _Batch(None, fb.total, outs, gate, writeback=writeback,
+                      windows=windows, staged=staged)
 
     def _rules_flush(self, ctx, batch, account, gbatch, nproc, pid,
                      push, skip):

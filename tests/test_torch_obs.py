@@ -1,8 +1,8 @@
 """The port's consumer-loop telemetry: the spans of ``crack_blocks``
 (``feed:next``, ``feed:stage``, ``engine:dispatch``, ``engine:collect`` >
-``engine:gate`` / ``engine:decode``), ``stage_times`` read off them, the
-found-fetch byte counter, the tracer's ring, and its ranges under a
-running ``torch.profiler``.
+``engine:gate`` / ``engine:decode``) and of ``crack_fused``'s batches,
+``stage_times`` read off them, the found-fetch byte counter, the tracer's
+ring, and its ranges under a running ``torch.profiler``.
 
 The engine runs on the CPU with hashlib PMKs (``hashlib_pmk``), as in
 test_torch_feed.py; the in-flight count needs a card and is tested in
@@ -19,6 +19,7 @@ import torch
 from torch_fixtures import SLICE_PSK, five_net_group, hashlib_pmk
 
 from dwpa_tpu_torch import feed as tfeed
+from dwpa_tpu_torch import testing as tfx
 from dwpa_tpu_torch.models import m22000 as tm
 from dwpa_tpu_torch.obs import MetricsRegistry, SpanTracer
 from dwpa_tpu_torch.obs import spans as obs_spans
@@ -107,6 +108,52 @@ def test_found_fetch_bytes(monkeypatch, hit):
 
 def five_net_group_prepped():
     return tm.M22000Engine(five_net_group(), batch_size=BATCH, device="cpu").nets
+
+
+def test_crack_fused_collects_each_batch_once(monkeypatch):
+    """``crack_fused`` over three units, two fused batches (hits in both
+    units of the first): one ``engine:collect`` with one ``engine:gate``
+    inside it a batch, a decode a hit unit, the counter at each hit
+    unit's found matrix and 32 bytes a hit column, and ``stage_times``
+    the spans' seconds."""
+    monkeypatch.setattr(tm, "_pmk_impl", hashlib_pmk)
+    psks = [b"obs-fused-pa", b"obs-fused-pb"]
+    essids = [b"ObsFuseA", b"ObsFuseB", b"ObsFuseC"]
+    lines = [tfx.make_pmkid_line(psks[0], essids[0], seed="of-a"),
+             tfx.make_pmkid_line(psks[1], essids[1], seed="of-b"),
+             tfx.make_pmkid_line(b"not-in-the-words", essids[2], seed="of-c")]
+    reg = MetricsRegistry()
+    tracer = SpanTracer(reg)
+    eng = tm.M22000Engine(lines, batch_size=BATCH, device="cpu", tracer=tracer)
+    decoded = []
+    real = eng._decode
+
+    def decode(group, found, pmk_col, pws, live):
+        decoded.append(found.nbytes + 32 * int(found.any(axis=(0, 1)).sum()))
+        return real(group, found, pmk_col, pws, live)
+
+    eng._decode = decode
+    parts = [(essids[0], [b"obsfusea%02d" % i for i in range(5)] + [psks[0]]),
+             (essids[1], [psks[1]] + [b"obsfuseb%02d" % i for i in range(5)]),
+             (essids[2], [b"obsfusec%02d" % i for i in range(6)])]
+    widths, events = [], []
+    founds = eng.crack_fused(parts, max_units=2, tracer=tracer,
+                             on_batch=lambda k, c, f: events.append((k, c, len(f))),
+                             on_fused=lambda fb: widths.append(fb.width))
+    assert sorted(f.psk for f in founds) == sorted(psks)
+    assert events == [(essids[0], 6, 1), (essids[1], 6, 1), (essids[2], 6, 0)]
+    recs = tracer.records()
+    names = ("engine:dispatch", "engine:collect", "engine:gate", "engine:decode",
+             "sched:demux")
+    assert {n: sum(r["name"] == n for r in recs) for n in names} == dict(
+        zip(names, (2, 2, 2, 2, 2)))
+    for r in tracer.records("engine:gate") + tracer.records("engine:decode"):
+        assert r["parent"] == "engine:collect"
+    # one PMKID net a unit: a found matrix of [1, 1, width] bools
+    assert reg.value(FETCH) == sum(decoded) == 2 * (widths[0] + 32)
+    for key in ("dispatch", "collect"):
+        assert eng.stage_times[key] == sum(
+            r["t1"] - r["t0"] for r in tracer.records(f"engine:{key}"))
 
 
 def test_engine_without_tracer_opens_no_span(monkeypatch):
