@@ -8,7 +8,9 @@ hashlib.  Phases, each printed as it ends:
 
 1. device and build: the card's name and power limit (``nvidia-smi``),
    then the three kernel libraries built from ``dwpa_tpu_torch/csrc``
-   (K1, K2, K3; one ``nvcc`` each, in parallel) and K3's SASS loops;
+   (K1, K2, K3; one ``nvcc`` each, in parallel), K1's loop split by pipe
+   (``ops/sass.py`` ``pipe_split``) with the ALU pipe's and the issue
+   rate's least time for a batch, and K3's SASS loops;
 2. the kernel against the plain version on the card at 2 and 4096
    iterations (every row width, both salt ranks, a ragged batch), and
    against ``hashlib.pbkdf2_hmac`` at 4096; equality is exact;
@@ -20,7 +22,8 @@ hashlib.  Phases, each printed as it ends:
    PSK, NC delta, endian and PMK, through K1 and K3 only (no plain
    PBKDF2, no plain verify); the breakdown times K3 per verify part on
    the device alone (``kernel_ms``), beside a single call with its host
-   issue and the plain verify on the same PMKs;
+   issue and the plain verify on the same PMKs; then K1 timed per launch
+   at 2,048 to 131,072 rows;
 5. the SM probe (K2): its kernel against the plain version for all four
    mixes at 1 and 2 iterations, at full width and at a ragged width
    (exact), then its measurement path (``sm_probe.run``): the four mixes
@@ -248,6 +251,9 @@ K3_PMKID_NETS = (1, 2, 7, 32)          # 15: pmkid's net sweep (7 bucket-padded 
 K3_PMKID_SMALL = ((2048, 1), (2048, 32), (16384, 32))   # 15: pmkid's small batches (B, nets)
 K3_WIDE_CHECK = 4096                   # 15b: columns held to the plain version
 SMEM_LANES_PER_SM_CLOCK = 32           # shared memory: one warp's 32 lanes a clock an SM
+ALU_LANES = 64                         # the ALU pipe: 4 x 16 lanes a clock an SM
+K1_SWEEP = (2048, 16384, 65536, 131072)   # 4: K1's widths timed per launch
+K1_TRIPS = 2 * 4095                    # K1's loop trips a PMK: half an HMAC iteration a trip
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3 (NVIDIA data sheet)
 STUB_URL = "http://stub/"
 STUB_DICT = "dict/phase4.txt.gz"
@@ -625,8 +631,24 @@ def phase_unit(dev, rng, card):
           f"K3 call (median of 5) and plain (median of 3) on the same PMKs: {'; '.join(parts)}), "
           f"gate {gate_ms:.3f} ms (no-hit batch), decode {decode_ms:.3f} ms (hit batch, "
           f"oracle re-check of 5 nets) [{card}]", flush=True)
+    sweep = phase_k1_widths(pw, step.salt1, step.salt2, card)
     return (launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds, k3_launches,
-            k3_parts, verify_ms)
+            k3_parts, verify_ms, sweep)
+
+
+def phase_k1_widths(pw, salt1, salt2, card):
+    """Phase 4, K1 by width: ms per launch at each width of ``K1_SWEEP``
+    (the first rows of ``pw``, the phase's batch, on its salts)."""
+    from dwpa_tpu_torch.ops import pbkdf2_cuda
+
+    sweep = {}
+    for n in K1_SWEEP:
+        rows = pw[:n].contiguous()
+        sweep[n] = cuda_ms(lambda: pbkdf2_cuda.pbkdf2_sha1_pmk_cuda(rows, salt1, salt2), 5)
+    print("phase 4 K1 by width: ms per launch (median of 5, CUDA events) "
+          + "; ".join(f"{n} rows {ms:.3f}" for n, ms in sweep.items()) + f" [{card}]",
+          flush=True)
+    return sweep
 
 
 def phase_probe(dev, rng, card):
@@ -3810,7 +3832,9 @@ def main():
         return 1
     from dwpa_tpu_torch.client.challenge import challenge
     from dwpa_tpu_torch.ops import _nvcc, pbkdf2, pbkdf2_cuda, sm_probe, verify_cuda
-    from dwpa_tpu_torch.ops.sass import dynamic_count, loop_opcodes, loop_span, sass_text
+    from dwpa_tpu_torch.ops.sass import (dynamic_count, loop_opcodes, loop_span, pipe_split,
+                                         sass_text)
+    from port_bench.census import k1_inst_per_pmk
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -3826,13 +3850,25 @@ def main():
         print(f"phase 1 build: {lib.name}; ptxas: {'; '.join(regs) or ptxas.strip()}", flush=True)
     k1_sass = sass_text(so)
     loop_inst, other_inst = loop_span(k1_sass, "pbkdf2_sha1_pmk_kernel")
-    k1_mix = loop_opcodes(k1_sass, "pbkdf2_sha1_pmk_kernel")
     steps = {mix: sm_probe.loop_sass(mix) for mix in sm_probe.MIXES}
     print(f"phase 1 build: three libraries in {build_s:.1f} s (one nvcc each, in parallel); "
-          f"K1 SASS: {loop_inst} instructions per loop iteration (T1+T2), {other_inst} outside "
-          f"the loop; probe SASS per {sm_probe.UNROLL}-step loop iteration: "
+          f"K1 SASS: {loop_inst} instructions per loop trip (half an HMAC iteration, T1+T2), "
+          f"{other_inst} outside the loop; "
+          f"probe SASS per {sm_probe.UNROLL}-step loop iteration: "
           f"{', '.join(f'{m} {n[0]} (+{n[1]} outside)' for m, n in steps.items())}", flush=True)
-    print(f"phase 1 build: K1 loop opcodes {dict(k1_mix.most_common())}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(sm_probe.nvidia_smi("clocks.max.sm").split()[0])
+    k1_mix = loop_opcodes(k1_sass, "pbkdf2_sha1_pmk_kernel")
+    split = pipe_split(k1_mix)
+    # Each pipe's least time for one batch's loop: its instructions over
+    # its lanes (ALU_LANES a clock an SM), or all over the issue rate.
+    per_ms = UNIT_BATCH * K1_TRIPS / (sms * clock_mhz * 1e3)
+    alu_ms = per_ms * split["alu"] / ALU_LANES
+    loop_issue_ms = per_ms * loop_inst / sm_probe.ISSUE_PER_SM_CLOCK
+    print(f"phase 1 build: K1 loop opcodes {dict(k1_mix.most_common())}; pipes {split} (ALU "
+          f"{split['alu'] / loop_inst:.1%}); ALU-pipe ceiling {alu_ms:.3f} ms per {UNIT_BATCH}-row "
+          f"batch ({sms} SMs x {ALU_LANES} lanes x {clock_mhz:.0f} MHz), issue ceiling of its "
+          f"SASS {loop_issue_ms:.3f} ms", flush=True)
     k3_sass = sass_text(k3_so)
     one_trip = {part: [1] * len(k3_trips(part[0], 1, 1, 1, 1)) for part in K3_PARTS}
     print("phase 1 build: K3 SASS instructions a thread at one trip of each loop "
@@ -3850,7 +3886,7 @@ def main():
     print("phase 3 challenge: passed (aaaa1234 on the PMKID and EAPOL lines)", flush=True)
 
     (launches, k1_ms, pw, step, words, unit_pmk_s, unit_founds, k3_launches, k3_parts,
-     verify_ms) = phase_unit(dev, rng, card)
+     verify_ms, k1_sweep) = phase_unit(dev, rng, card)
     k3_paths = {"unit (phase 4)": k3_launches}
 
     # The plain version at the main path's shape, on the same batch.
@@ -3909,23 +3945,28 @@ def main():
     rates = k3_rates(res)
     k3_err = phase_k3(dev, rng, card, k1_ms, rates, k3_sass)
 
-    # K1's bounds.  Issue rate: every SM issues 4 x 32 thread-instructions
-    # a clock at the maximum SM clock.  Probe rate: the thread-instructions
-    # per second the sha1_round probe sustained on the whole card.
+    # K1's bounds, on the instructions its function needs (the frozen
+    # census, which no rewrite of the kernel moves).  Issue rate: every SM
+    # issues 4 x 32 thread-instructions a clock at the maximum SM clock.
+    # Probe rate: the thread-instructions per second the sha1_round probe
+    # sustained on the whole card.  Beside them, the kernel's own SASS at
+    # the issue rate.
     sms = res["sms"]
     clock_hz = float(res["max_sm_clock"].split()[0]) * 1e6
     issue_per_s = sms * sm_probe.ISSUE_PER_SM_CLOCK * clock_hz
     probe_per_s = res["mixes"]["sha1_round"]["thread_inst_per_s"]
     b = pw.shape[0]
-    k1_inst = b * (loop_inst * 4095 + other_inst)
+    k1_inst = b * k1_inst_per_pmk()
     issue_ms = k1_inst / issue_per_s * 1e3
     probe_ms = k1_inst / probe_per_s * 1e3
-    print(f"K1 bound: {b} rows x ({loop_inst} x 4095 + {other_inst}) SASS instructions; "
-          f"issue rate ({sms} SMs x {sm_probe.ISSUE_PER_SM_CLOCK} x {clock_hz / 1e6:.0f} MHz) "
+    sass_ms = b * (loop_inst * K1_TRIPS + other_inst) / issue_per_s * 1e3
+    print(f"K1 bound: {b} rows x {k1_inst_per_pmk()} instructions a PMK (census); issue rate "
+          f"({sms} SMs x {sm_probe.ISSUE_PER_SM_CLOCK} x {clock_hz / 1e6:.0f} MHz) "
           f"{issue_ms:.3f} ms, K1 at {issue_ms / k1_ms:.1%} of it; probe rate (sha1_round "
           f"{probe_per_s:.6g} thread-instructions/s) {probe_ms:.3f} ms, K1 at "
           f"{probe_ms / k1_ms:.1%} of it; K1 {k1_ms:.3f} ms; plain version {plain_ms:.1f} ms "
-          f"on the same batch [{card}]", flush=True)
+          f"on the same batch; K1's own SASS ({loop_inst} x {K1_TRIPS} + {other_inst} a row) "
+          f"at the issue rate {sass_ms:.3f} ms [{card}]", flush=True)
 
     # K2's bound: the SASS thread-instructions of one full-width sha1_round
     # launch at the issue rate.
@@ -3971,6 +4012,7 @@ def main():
                              "rules streams (phase 14b)": slice_launches["14b"],
                              "two-process slice (phase 14d)": slice_launches["14d"]},
         "precrack_ms": precrack_ms, "precrack_lanes": PRECRACK_BATCH,
+        "sass_issue_ms": sass_ms, "width_sweep_ms": k1_sweep,
     }, {
         "name": "sm_probe", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,

@@ -4,8 +4,9 @@
 ``cuobjdump -sass`` (on the machine with the CUDA toolkit); the readers
 of that text run anywhere: :func:`loop_span` counts a kernel's
 instructions in and outside its hot loop, :func:`loop_opcodes` gives the
-loop's instruction mix, and :func:`dynamic_count` the instructions one
-thread issues given its loops' trip counts.  The hot loop is the longest
+loop's instruction mix, :func:`pipe_split` that mix by the pipe that
+issues it, and :func:`dynamic_count` the instructions one thread issues
+given its loops' trip counts.  The hot loop is the longest
 backward-branch span of the kernel's code; NOPs are not counted.
 Kernel bounds in ``chip_smoke.py`` and the SM probe's per-step counts are
 built on these numbers.
@@ -101,6 +102,24 @@ def loop_opcodes(text, kernel):
     """Counter of the opcodes in ``kernel``'s hot loop (NOPs left out)."""
     ops, (first, last) = _loop(text, kernel)
     return Counter(c for c in map(_opcode, ops[first: last + 1]) if c != "NOP")
+
+
+#: Opcode prefixes by pipe, as the SM probe's mixes read on an H100: LOP3,
+#: SHF, LEA and IADD3 share one 64-lane pipe (each alone and their SHA-1
+#: round mix run at 64 thread-instructions a clock an SM), IMAD and VIADD
+#: issue beside it (IADD3 with IMAD.IADD, LOP3 with IMAD or VIADD run above
+#: 64).  IMAD.HI issues at half the FMA pipe's rate.
+PIPES = {"alu": ("LOP3", "SHF", "LEA", "IADD3"), "fma": ("IMAD", "VIADD")}
+
+
+def pipe_split(opcodes):
+    """``{"alu", "fma", "other"}`` counts of a :func:`loop_opcodes` counter,
+    by :data:`PIPES`."""
+    out = dict.fromkeys(("alu", "fma", "other"), 0)
+    for op, n in opcodes.items():
+        pipe = next((p for p, prefixes in PIPES.items() if op.startswith(prefixes)), "other")
+        out[pipe] += n
+    return out
 
 
 def sass_text(so):

@@ -15,6 +15,7 @@ alone with ``--noconftest``.
 
 import collections
 import hashlib
+import re
 
 import numpy as np
 import pytest
@@ -26,16 +27,26 @@ from torch_fixtures import (  # noqa: F401  (cuda_device is a fixture)
 from dwpa_tpu_torch import testing as tfx
 from dwpa_tpu_torch.client.challenge import challenge
 from dwpa_tpu_torch.models import m22000 as tm
-from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda, sm_probe, verify, verify_cuda
+from dwpa_tpu_torch.ops import _nvcc, pbkdf2, pbkdf2_cuda, sm_probe, verify, verify_cuda
 from dwpa_tpu_torch.ops.common import to_numpy, to_torch
+from dwpa_tpu_torch.ops.sass import loop_opcodes, pipe_split, sass_text
 from dwpa_tpu_torch.utils import bytesops as bo
 
 
+#: K1's ALU-pipe share of its loop's SASS on an H100 (ptxas of CUDA
+#: 12.8), which ``test_kernel_loop_keeps_its_pipe_split`` holds to within
+#: 2 points.
+LOOP_ALU_SHARE = 0.644
+#: Rows of K1's launches: a ragged block, and the cells' full batch.
+K1_WIDTHS = [333, 131072]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", K1_WIDTHS)
 @pytest.mark.parametrize("rank", [1, 2])
 @pytest.mark.parametrize("w", [4, 8, 16])
-def test_kernel_matches_plain(cuda_device, w, rank):  # noqa: F811
-    _, packed, s1, s2 = pbkdf2_inputs(w, rank)
+def test_kernel_matches_plain(cuda_device, w, rank, n):  # noqa: F811
+    _, packed, s1, s2 = pbkdf2_inputs(w, rank, n=n)
     args = [to_torch(a, cuda_device) for a in (packed[:, :w], s1, s2)]
     for iterations in (1, 2, 5):
         got = pbkdf2_cuda.pbkdf2_sha1_pmk_cuda(*args, iterations=iterations)
@@ -43,15 +54,32 @@ def test_kernel_matches_plain(cuda_device, w, rank):  # noqa: F811
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", K1_WIDTHS)
 @pytest.mark.parametrize("rank", [1, 2])
-def test_kernel_matches_hashlib(cuda_device, rank):  # noqa: F811
-    words, packed, s1, s2 = pbkdf2_inputs(16, rank)
+def test_kernel_matches_hashlib(cuda_device, rank, n):  # noqa: F811
+    words, packed, s1, s2 = pbkdf2_inputs(16, rank, n=n)
     before = pbkdf2_cuda.LAUNCHES
     out = to_numpy(tm._pmk_impl(*(to_torch(a, cuda_device) for a in (packed, s1, s2))))
     assert pbkdf2_cuda.LAUNCHES == before + 1
-    for i, word in enumerate(words):
+    for i in sorted({*range(0, n, max(1, n // 16)), n - 1}):
         essid = PBKDF2_ESSID if rank == 1 else salt_essid(to_torch(s1[i], "cpu"))
-        assert bo.words_to_bytes_be(out[:, i]) == hashlib.pbkdf2_hmac("sha1", word, essid, 4096, 32)
+        assert bo.words_to_bytes_be(out[:, i]) == hashlib.pbkdf2_hmac(
+            "sha1", words[i], essid, 4096, 32)
+
+
+@pytest.mark.gpu
+def test_kernel_loop_keeps_its_pipe_split(cuda_device):  # noqa: F811
+    """K1's loop keeps its share of ALU-pipe opcodes (a ptxas that folds
+    the IMADs back into IADD3s raises it), and the kernel stays at 64
+    registers or fewer with no spills (``__launch_bounds__``: eight blocks
+    an SM, a 131,072-row batch in one wave)."""
+    so = _nvcc.build(pbkdf2_cuda.SOURCE)[0]
+    split = pipe_split(loop_opcodes(sass_text(so), "pbkdf2_sha1_pmk_kernel"))
+    assert split["alu"] / sum(split.values()) <= LOOP_ALU_SHARE + 0.02, split
+    ptxas = so.with_suffix(".ptxas.txt").read_text()
+    registers = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+    assert len(registers) == 1 and registers[0] <= 64, ptxas
+    assert not re.search(r"[1-9]\d* bytes spill", ptxas), ptxas
 
 
 @pytest.mark.gpu

@@ -11,12 +11,15 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 from torch_fixtures import PBKDF2_ESSID, pbkdf2_inputs, plain_pmk
 from torch_jax_refs import jax_pallas_pmk, jax_xla_pmk
 
 from dwpa_tpu_torch.models import m22000 as tm
 from dwpa_tpu_torch.ops import _nvcc, pbkdf2, pbkdf2_cuda
 from dwpa_tpu_torch.ops.common import to_torch
+from dwpa_tpu_torch.ops.hmac import hmac_sha1_blocks, hmac_sha1_precompute
+from dwpa_tpu_torch.ops.sha1 import sha1_compress
 from dwpa_tpu_torch.utils import bytesops as bo
 
 
@@ -85,3 +88,25 @@ def test_library_path_is_keyed_by_source():
     assert path.parent == _nvcc.BUILD_DIR
     assert path.name.startswith("libpbkdf2_sha1_") and path.suffix == ".so"
 
+
+@pytest.mark.parametrize("iterations", [1, 2, 5])
+def test_half_trip_loop_matches_plain(iterations):
+    """The kernel's loop order, emulated on the CPU: a trip is one
+    compression of the 20-byte message from the inner pad state on even
+    trips and from the outer on odd ones, picked by a mask of the trip's
+    parity, and the accumulator takes the odd trips' digests under the
+    same mask; the PMKs equal the plain version's."""
+    _, packed, s1, s2 = pbkdf2_inputs(8, 2)
+    pw, salt1, salt2 = (to_torch(a, "cpu") for a in (packed[:, :8], s1, s2))
+    ist, ost = hmac_sha1_precompute([pw[:, i] for i in range(8)] + [0] * 8)
+    blocks = []
+    for salt in (salt1, salt2):
+        u = acc = hmac_sha1_blocks(ist, ost, [[salt[:, i] for i in range(16)]])
+        for h in range(2, 2 * iterations):
+            outer = -(h & 1)
+            st = [(i & ~outer) | (o & outer) for i, o in zip(ist, ost)]
+            u = sha1_compress(st, list(u) + [0x80000000] + [0] * 9 + [84 * 8])
+            acc = [a ^ (x & outer) for a, x in zip(acc, u)]
+        blocks.append(list(acc))
+    got = torch.stack(blocks[0] + blocks[1][:3])
+    assert torch.equal(got, pbkdf2.pbkdf2_sha1_pmk(pw, salt1, salt2, iterations))

@@ -9,6 +9,7 @@ the card (test_torch_gpu.py).
 
 import subprocess
 import sys
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +23,7 @@ from dwpa_tpu.ops import sha1 as jsha1
 from dwpa_tpu_torch.ops import hmac as hm
 from dwpa_tpu_torch.ops import common, opcount, sha1, sm_probe
 from dwpa_tpu_torch.ops.common import to_numpy, to_torch
-from dwpa_tpu_torch.ops.sass import dynamic_count, loop_opcodes, loop_span
+from dwpa_tpu_torch.ops.sass import dynamic_count, loop_opcodes, loop_span, pipe_split
 
 B = 32
 
@@ -250,6 +251,18 @@ def test_sass_loop_span_on_canned_listing():
         loop_span(_SASS, "sm_probe")  # names two functions
     with pytest.raises(ValueError):
         loop_span(_SASS, "sm_probe_rotl")
+
+
+def test_sass_pipe_split_on_canned_listing():
+    """LOP3, SHF, LEA and IADD3 count on the ALU pipe, IMAD and VIADD on
+    the FMA pipe; the uniform datapath's UIADD3, compares and branches are
+    neither."""
+    assert pipe_split(loop_opcodes(_SASS, "sm_probe_xor")) == {"alu": 2, "fma": 0, "other": 2}
+    assert pipe_split(Counter({
+        "LOP3.LUT": 7, "SHF.L.W.U32.HI": 5, "LEA.HI": 3, "IADD3": 2, "IMAD": 11,
+        "IMAD.IADD": 4, "IMAD.HI.U32": 1, "IMAD.MOV.U32": 1, "VIADD": 6, "UIADD3": 1,
+        "PLOP3.LUT": 1, "UISETP.GE.AND": 1, "BRA": 1})) == {"alu": 17, "fma": 23, "other": 4}
+    assert pipe_split(Counter()) == {"alu": 0, "fma": 0, "other": 0}
 
 
 def test_sass_dynamic_count_on_canned_listing():
