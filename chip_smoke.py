@@ -841,7 +841,6 @@ def phase_client(card, words, unit_pmk_s):
     """Phase 6: the volunteer loop on the card against the stub server.
     Returns K1's launches in the first run() and its pass-2 PMK/s."""
     from dwpa_tpu_torch import native
-    from dwpa_tpu_torch.models import m22000 as m
     from dwpa_tpu_torch.ops import pbkdf2, pbkdf2_cuda
 
     lines = unit_lines()
@@ -853,7 +852,7 @@ def phase_client(card, words, unit_pmk_s):
 
     # -- the unit through TpuCrackClient.run(), feed_workers=1 -------------
     packers = collections.Counter()   # thread name -> native pack calls
-    real_pack = m.pack_candidates_fast
+    real_pack = native.pack_spans     # every native pack: words or a dict's spans
 
     def counting_pack(*args, **kwargs):
         packers[threading.current_thread().name] += 1
@@ -861,7 +860,7 @@ def phase_client(card, words, unit_pmk_s):
 
     server = Server(blob, dhash)
     client, reg = make_client(server, CLIENT_DIR / "unit", 1, "feed_workers=1")
-    m.pack_candidates_fast = counting_pack
+    native.pack_spans = counting_pack
     pbkdf2_cuda.LAUNCHES = 0
     pbkdf2.CALLS = 0
     native.CALLS = 0
@@ -870,7 +869,7 @@ def phase_client(card, words, unit_pmk_s):
         done = client.run()
         wall = time.perf_counter() - t0
     finally:
-        m.pack_candidates_fast = real_pack
+        native.pack_spans = real_pack
     launches, plain_calls, native_calls = pbkdf2_cuda.LAUNCHES, pbkdf2.CALLS, native.CALLS
     check(done == 1, f"run() completed {done} units")
     res = client.last_result

@@ -32,7 +32,10 @@ device.  With ``pmk_cache_dir`` set, both passes run through a
 persistent PMK store (``dwpa_tpu_torch.pmkstore``); with
 ``dict_cache_dir`` set, pass 2 reads every server dict after its first
 pass from the packed-dictionary cache (``feed.dictcache``: pre-packed
-rows, or pre-split rules bases, from an mmap; a resume is an index seek).
+rows, or pre-split rules bases, from an mmap; a resume is an index seek);
+without it, one process's plain pass 2 finds each dict's lines with
+numpy and packs them natively on the feed's producers
+(``feed.framing.frame_spans``).
 
 Bulk passes run lockstep on the client's device, or as independent
 per-device streams (``device_streams``: ``"on"``, ``"off"``, or
@@ -64,11 +67,12 @@ from dataclasses import dataclass
 from .. import __version__
 from ..analysis.recompile import watch_compiles
 from ..feed import CandidateFeed, DictCache, DictFeedSource, RulesFeedSource
-from ..feed.framing import frame_blocks
+from ..feed.framing import frame_blocks, frame_spans
 from ..gen import DictStream, psk_candidates
 from ..gen.mask import mask_blocks
 from ..models import hashline as hl
 from ..models.m22000 import M22000Engine
+from ..native import load_pack
 from ..obs import (SpanTracer, default_registry, get_logger, is_emitter,
                    merged_slice_snapshot, setup_logging)
 from ..oracle import m22000 as oracle
@@ -973,6 +977,18 @@ class TpuCrackClient:
                             batch_size=self.cfg.batch_size,
                             cache=self.dict_cache, skip=skip2, name="pass2",
                             log=self.log)
+                        feed2 = CandidateFeed(
+                            None, batch_size=self.cfg.batch_size, frames=src,
+                            prepack=engine.host_packer(), name="pass2",
+                            **cfg_feed)
+                    elif process_count() == 1 and load_pack() is not None:
+                        # No cache, one process: the dicts' lines found
+                        # with numpy and packed natively on the producers
+                        # (no bytes object a word), framed as the chained
+                        # word stream would be, resume skip included.
+                        src = frame_spans(
+                            (sp for p in paths for sp in DictStream(p).spans()),
+                            self.cfg.batch_size, skip=skip2)
                         feed2 = CandidateFeed(
                             None, batch_size=self.cfg.batch_size, frames=src,
                             prepack=engine.host_packer(), name="pass2",

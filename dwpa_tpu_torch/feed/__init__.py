@@ -6,7 +6,9 @@ Overlaps host candidate production with device compute:
   framing (single-host and multi-host shard slicing; the resume-gate
   contract lives here), plus ``frame_packed`` — the index-backed twin
   that frames packed chunks into the same geometry with lazy
-  ``PackedSlices`` preps;
+  ``PackedSlices`` preps, and ``frame_spans``, which frames a cold
+  dict's line spans into the same geometry with lazy ``PackedSpans``
+  preps;
 - :mod:`.pipeline` — ``CandidateFeed``: bounded block queue filled by
   producer threads running the host stages (dict streaming, ``$HEX``
   decode + native packing), with backpressure, fault-with-offset
@@ -29,13 +31,14 @@ wired through the client (pass 1, both pass-2 paths, prewarm).
 
 from .dictcache import DictCache
 from .framing import Block, PackedSlices, RulesPrep, frame_blocks, \
-    frame_packed, frame_rules_packed, skip_stream
+    frame_packed, frame_rules_packed, frame_spans, skip_stream
 from .pipeline import CandidateFeed, DictFeedSource, FeedError, \
     RulesFeedSource
 from .staging import DeviceStager
 
 __all__ = [
     "Block", "PackedSlices", "RulesPrep", "frame_blocks", "frame_packed",
-    "frame_rules_packed", "skip_stream", "CandidateFeed", "DictFeedSource",
-    "FeedError", "RulesFeedSource", "DeviceStager", "DictCache",
+    "frame_rules_packed", "frame_spans", "skip_stream", "CandidateFeed",
+    "DictFeedSource", "FeedError", "RulesFeedSource", "DeviceStager",
+    "DictCache",
 ]

@@ -84,8 +84,22 @@ def frame_blocks(words, batch_size: int, nproc: int = 1, pid: int = 0,
     ``base_offset`` seeds the global offset (a resume fast-forward that
     already consumed ``skip`` words passes ``skip``).  ``watermark``
     (tests only) receives each block's peak buffer size.
+
+    One process takes every word of every block, so its blocks are cut
+    with ``islice``, without the shard arithmetic below (about 1.75 us
+    a word in Python).
     """
     it = iter(words)
+    if nproc == 1:
+        offset = base_offset
+        while batch := list(itertools.islice(it, batch_size)):
+            if watermark is not None:
+                watermark.append(len(batch))
+            yield Block(offset=offset, count=len(batch), words=batch)
+            offset += len(batch)
+            if len(batch) < batch_size:
+                return
+        return
     gsize = batch_size * nproc
     hi = (pid + 1) * batch_size
     offset = base_offset
@@ -151,6 +165,62 @@ class PackedSlices:
                 r += nv
         lens = (np.concatenate(lens) if lens else np.zeros(0, np.uint8))
         return packed, lens, r
+
+
+class PackedSpans:
+    """Lazy prep for a cold dict block (``frame_spans``): the block's
+    words as spans of decompressed dict chunks, packed by the native
+    packer on a feed producer thread (``CandidateFeed._pack``), outside
+    the interpreter lock.  ``materialize()`` returns what
+    ``pack_candidates_fast`` returns for the block's words at
+    ``capacity=cap``."""
+
+    __slots__ = ("parts", "cap")
+
+    def __init__(self, parts, cap: int):
+        self.parts = parts   # [(buf, starts int64[k], lens int64[k])]
+        self.cap = cap
+
+    def materialize(self):
+        from .. import native
+        from .dictcache import _MAX_LEN, _MIN_LEN
+
+        count = sum(len(starts) for _, starts, _ in self.parts)
+        packed = np.zeros((max(self.cap, count), 16), np.uint32)
+        lens = np.empty(count, np.uint8)
+        r = 0
+        for buf, starts, wlens in self.parts:
+            n = native.pack_spans(buf, starts, wlens, _MIN_LEN, _MAX_LEN,
+                                  packed[r:], lens[r:])
+            if n is None:
+                raise RuntimeError("the native packer is unavailable")
+            r += n
+        return packed, lens[:r], r
+
+
+def frame_spans(spans, batch_size: int, skip: int = 0):
+    """Frame one process's word stream given as ``(buf, starts, lens)``
+    spans (``gen.DictStream.spans``, chained over a unit's dicts) into
+    ``Block``s: after a resume ``skip`` of whole words, the ``(offset,
+    count)`` geometry ``frame_blocks`` gives the same words at
+    ``base_offset=skip``, with ``Block.words`` empty and ``Block.prep`` a
+    lazy ``PackedSpans``.  A block may span two chunks or two dicts."""
+    offset, parts, count = skip, [], 0
+    for buf, starts, lens in spans:
+        if skip:
+            k = min(skip, len(starts))
+            starts, lens, skip = starts[k:], lens[k:], skip - k
+        while len(starts):
+            k = min(batch_size - count, len(starts))
+            parts.append((buf, starts[:k], lens[:k]))
+            starts, lens, count = starts[k:], lens[k:], count + k
+            if count == batch_size:
+                yield Block(offset=offset, count=count, words=[],
+                            prep=PackedSpans(parts, batch_size))
+                offset, parts, count = offset + count, [], 0
+    if count:
+        yield Block(offset=offset, count=count, words=[],
+                    prep=PackedSpans(parts, batch_size))
 
 
 class RulesPrep:

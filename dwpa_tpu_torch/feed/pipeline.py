@@ -40,8 +40,15 @@ Metric names (README "Candidate feed"): ``dwpa_feed_queue_depth``
 (gauge), ``dwpa_feed_producer_stall_seconds`` /
 ``dwpa_feed_consumer_starve_seconds`` (histograms),
 ``dwpa_feed_blocks_total`` / ``dwpa_feed_candidates_total`` /
-``dwpa_feed_bytes_total`` (counters) — all labeled ``feed=<name>`` —
-plus ``feed:skip`` / ``feed:produce`` spans in ``dwpa_span_seconds``.
+``dwpa_feed_bytes_total`` / ``dwpa_feed_framed_words_total`` (counters)
+— all labeled ``feed=<name>`` — plus ``feed:skip`` / ``feed:frame`` /
+``feed:produce`` spans in ``dwpa_span_seconds``.  ``feed:frame`` is the
+source side of a block under the source lock: the resume skip, the
+word source pulled through (a dict's gunzip and line split) and the
+framing, or a pre-framed source's next block; it is recorded for every
+call, the one that finds the source exhausted included.
+``dwpa_feed_framed_words_total`` counts the global words of each
+framed block (``Block.count``), inside that span.
 """
 
 import threading
@@ -87,7 +94,8 @@ class CandidateFeed:
 
     ``frames``: a pre-framed ``Block`` iterator consumed INSTEAD of word
     framing — the source owns geometry and skip (pass ``skip=0``).
-    Blocks arriving with a lazy prep (``framing.PackedSlices``) are
+    Blocks arriving with a lazy prep (``framing.PackedSlices``,
+    ``framing.PackedSpans``) are
     materialized in ``_pack`` on the producer threads, then handed to a
     ``pre=``-aware ``prepack`` (``host_packer``'s bypass).
     """
@@ -154,6 +162,9 @@ class CandidateFeed:
         self._m_bytes = reg.counter(
             "dwpa_feed_bytes_total",
             "candidate bytes materialized on this host").labels(**lbl)
+        self._m_framed = reg.counter(
+            "dwpa_feed_framed_words_total",
+            "global words of the blocks framed from the source").labels(**lbl)
         self._threads = []
         self._inline = producers <= 0
         if self._inline:
@@ -185,8 +196,11 @@ class CandidateFeed:
 
     def _frame_next(self):
         """-> (seq, Block | None) under ``_src_lock``; None = exhausted."""
-        self._do_skip()
-        blk = next(self._frames, None)
+        with self.tracer.span("feed:frame"):
+            self._do_skip()
+            blk = next(self._frames, None)
+            if blk is not None:
+                self._m_framed.inc(blk.count)
         seq = self._next_frame
         self._next_frame += 1
         if blk is not None:

@@ -47,7 +47,6 @@ Layout of the device work:
 
 import contextlib
 import functools
-import itertools
 import struct
 import threading
 import time
@@ -1316,20 +1315,10 @@ class M22000Engine:
         """Stream candidates in engine-sized batches until exhausted: a
         front over ``crack_blocks`` (``on_batch(consumed, founds)`` after
         each batch, in stream order).  In a slice each process passes its
-        own shard.  The blocks are ``feed.framing.frame_blocks``' at one
-        process, cut with ``islice``: ``frame_blocks``' per-word shard
-        arithmetic made this path host-bound (2.3-2.8x on an H100)."""
-        from ..feed.framing import Block
+        own shard, framed here as one process's stream."""
+        from ..feed.framing import frame_blocks
 
-        words = iter(candidates)
-
-        def blocks():
-            offset = 0
-            while batch := list(itertools.islice(words, self.batch_size)):
-                yield Block(offset=offset, count=len(batch), words=batch)
-                offset += len(batch)
-
-        return self.crack_blocks(blocks(), on_batch)
+        return self.crack_blocks(frame_blocks(candidates, self.batch_size), on_batch)
 
     def crack_blocks(self, blocks, on_batch=None) -> list:
         """Crack a framed candidate-block stream (``dwpa_tpu_torch.feed``).

@@ -129,11 +129,9 @@ def pack_candidates_fast(words, min_len: int, max_len: int,
     target so the padding rows come for free), or None when the native
     library is unavailable or the input isn't a plain bytes list.
     """
-    global CALLS
     import numpy as np
 
-    lib = load_pack()
-    if lib is None or not all(type(w) is bytes for w in words):
+    if load_pack() is None or not all(type(w) is bytes for w in words):
         return None
     count = len(words)
     blob = b"".join(words)
@@ -144,10 +142,29 @@ def pack_candidates_fast(words, min_len: int, max_len: int,
     cap = max(capacity or 0, count)
     out = np.zeros((cap, 16), dtype=np.uint32)
     out_lens = np.empty(count, dtype=np.uint8)
+    n = pack_spans(blob, offs, lens_in, min_len, max_len, out, out_lens)
+    if n is None:
+        return None
+    return out, out_lens[:n], n
+
+
+def pack_spans(blob: bytes, offs, lens, min_len: int, max_len: int,
+               out, out_lens):
+    """The native pack of the words ``blob[offs[i]:offs[i] + lens[i]]``
+    (``offs``/``lens`` contiguous int64 arrays) into ``out`` (zeroed
+    uint32[>= n, 16]) and ``out_lens`` (uint8[>= n]): accepted rows
+    from row 0 in order, as ``pack_candidates_fast`` packs a word list.
+    -> the accepted count, or None when the native library is
+    unavailable or refuses the arguments."""
+    global CALLS
+
+    lib = load_pack()
+    if lib is None:
+        return None
     n = lib.dwpa_pack(
         blob, offs.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
-        lens_in.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
-        count, min_len, max_len,
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+        len(offs), min_len, max_len,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
         out_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
@@ -155,4 +172,4 @@ def pack_candidates_fast(words, min_len: int, max_len: int,
         return None
     with _CALLS_LOCK:
         CALLS += 1
-    return out, out_lens[:n], int(n)
+    return int(n)

@@ -61,9 +61,13 @@ def test_frame_blocks_match_jax(n, bs):
         for pid in range(nproc):
             for base in (0, 1000):
                 kw = dict(nproc=nproc, pid=pid, pad_word=b"", base_offset=base)
-                got = [block_key(b) for b in tfeed.frame_blocks(iter(words), bs, **kw)]
-                ref = [block_key(b) for b in jfeed.frame_blocks(iter(words), bs, **kw)]
+                marks, jmarks = [], []
+                got = [block_key(b) for b in tfeed.frame_blocks(iter(words), bs, **kw,
+                                                                 watermark=marks)]
+                ref = [block_key(b) for b in jfeed.frame_blocks(iter(words), bs, **kw,
+                                                                 watermark=jmarks)]
                 assert got == ref, (n, bs, nproc, pid, base)
+                assert marks == jmarks, (n, bs, nproc, pid, base)
 
 
 @pytest.mark.parametrize("k", [0, 4, 10, 30])

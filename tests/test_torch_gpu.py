@@ -1,8 +1,8 @@
 """The port on a CUDA device: the PBKDF2 kernel, the verify kernels
 (K3), the engine, the SM probe kernel, the rule interpreter, the mask generator, the PMK
 store's mixed blocks, mixed-ESSID unit fusion, the packed-dictionary
-cache's warm blocks, the server pre-crack's batcher, the Thomson
-serial sweep, and per-device streams on one card.
+cache's warm blocks, the client's cold pass-2 feed, the server pre-crack's
+batcher, the Thomson serial sweep, and per-device streams on one card.
 
 Every test here carries the ``gpu`` marker and takes the ``cuda_device``
 fixture, which skips where there is no card.  On the GPU:
@@ -403,6 +403,73 @@ def test_warm_crack_blocks_on_the_card(cuda_device, tmp_path):  # noqa: F811
     assert reg.value("dwpa_dictcache_hit_blocks_total") == 3
     assert {k[4] for k in runs[1][0]} == {hashlib.pbkdf2_hmac("sha1", SLICE_PSK, SLICE_ESSID,
                                                              4096, 32)}
+
+
+def cold_unit_on_the_card(workdir, seed, device="cuda:0", **sizes):
+    """One unit of ``unit5.cache_off`` (the client at its defaults, no dict
+    cache) through ``TpuCrackClient.run()`` on ``device``
+    (``port_bench.cell.run_cell``, a window of one unit); ``sizes``
+    override the configuration's (``dictcount``, ``dict_words``,
+    ``batch_size``).  Every pass-2 block the feed hands the engine is
+    recorded as ``(offset, count, CRC-32 of its words)``, the words read
+    back from the block's packed rows (the cell's words are 8-63 bytes
+    of ``[a-z0-9]``, so the packer keeps each as it is).  -> (is the run
+    correct, the window unit's blocks, ``feed_ref``'s blocks over the
+    unit's ``.gz`` dicts, the words pass 2 framed in the window)."""
+    import os
+
+    from port_bench import feed_ref, run
+    from port_bench.cell import run_cell
+
+    from dwpa_tpu_torch.feed import pipeline
+
+    _, config, traffic, _, _ = run.cell_spec("unit5.cache_off")
+    config = {**config, **sizes}
+    traffic = {**traffic, "dict_pool": config["dictcount"]}
+    seen = {}
+    record = pipeline.CandidateFeed._record
+
+    def recording(feed, blk):
+        if feed.name == "pass2":
+            rows, lens, n = blk.prep
+            flat = rows[:n].astype(">u4").tobytes()
+            words = [flat[64 * i:64 * i + k] for i, k in enumerate(lens[:n].tolist())]
+            seen.setdefault(feed, []).append((blk.offset, blk.count, feed_ref.words_crc(words)))
+        return record(feed, blk)
+
+    pipeline.CandidateFeed._record = recording
+    try:
+        w, checks, _, _ = run_cell(config, traffic, seed, 1.0, None, workdir / "work",
+                                   device=device)
+    finally:
+        pipeline.CandidateFeed._record = record
+    assert len(w.units) == 1
+    paths = []
+    for d in w.units[0].dicts:
+        paths.append(os.path.join(workdir, d.dhash + ".gz"))
+        with open(paths[-1], "wb") as f:
+            f.write(d.gz)
+    want = [(o, c, feed_ref.words_crc(ws))
+            for o, c, ws in feed_ref.blocks(paths, config["batch_size"])]
+
+    def pass2_words(snapshot):
+        return sum(s["value"] for s in snapshot["dwpa_feed_framed_words_total"]["samples"]
+                   if s["labels"]["feed"] == "pass2")
+
+    words = pass2_words(w.metrics_after) - pass2_words(w.metrics_before)
+    # the warm unit's pass 2, then the window's
+    return run.is_correct(checks, w), list(seen.values())[1], want, words
+
+
+@pytest.mark.gpu
+def test_cold_unit_through_the_client_matches_feed_ref(cuda_device, tmp_path):  # noqa: F811
+    """Two cold dicts of 2**20 words through the client on the card: every
+    pass-2 block equal to ``port_bench/feed_ref.py``'s, 16 blocks of the
+    batch, all words framed once, and the unit's finds correct."""
+    correct, got, want, words = cold_unit_on_the_card(tmp_path, 20261022, dictcount=2)
+    assert correct
+    assert got == want and [c for _, c, _ in got] == [131072] * 16
+    assert words == 2 * 2**20
 
 
 @pytest.mark.gpu
